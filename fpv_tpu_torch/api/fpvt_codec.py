@@ -12,15 +12,25 @@ CG2D wavefront K3) -> temporal add -> plane combine.
 Every public entry point takes ``device=`` (default ``"cuda"``): the data
 lives there, and each kernel wrapper launches its CUDA kernel on a CUDA
 device or runs its plain PyTorch version on the CPU.  The files written are
-byte-identical to the JAX package's device (pallas-engine) writer with the
-narrow-stream policy off; all streams use the 1024-lane geometry.
+byte-identical to the JAX package's writer: small files (at most
+NARROW_MAX_SYMS body symbols) code their plane batches as narrow streams
+through the per-plane route, larger ones take the fused 1024-lane route of
+the JAX device writer.  Narrow streams run on the same kernels as wide
+ones (the JAX package codes them on the host).
+
+The reader decodes whole batches, single frames from only the rANS blocks
+that cover them (random access), previews, and (FpvtStreamingReader)
+files that arrive in pieces.
 """
 
 from __future__ import annotations
 
+import struct
+
 import numpy as np
 import torch
 
+from fpv_tpu_torch.entropy import plane_codec
 from fpv_tpu_torch.entropy.plane_codec import (
     PlaneStream,
     _hist_flat,
@@ -30,6 +40,7 @@ from fpv_tpu_torch.entropy.plane_codec import (
     ctx_combine_device,
     ctx_presence_device,
     decode_plane_batch,
+    decode_plane_range,
     encode_plane_batch,
     lens_tensor,
 )
@@ -51,7 +62,13 @@ from fpv_tpu_torch.format.fpvt import (
     SPATIAL_UP,
     Header,
 )
-from fpv_tpu_torch.ops.planes import combine_planes, split_planes, to_int16
+from fpv_tpu_torch.ops.planes import (
+    combine_planes,
+    resolve_u8_shift,
+    split_planes,
+    to_int16,
+    validate_u8_config,
+)
 from fpv_tpu_torch.ops.predict import (
     cg2d_decode,
     cg2d_encode,
@@ -60,7 +77,19 @@ from fpv_tpu_torch.ops.predict import (
     up_encode,
 )
 from fpv_tpu_torch.ops.preview import generate_preview
-from fpv_tpu_torch.ops.rans_layout import CODING_CTX16, CODING_ORDER0, CTX_NIDX
+from fpv_tpu_torch.ops.rans_layout import (
+    BLOCK_LANES,
+    CODING_CONST,
+    CODING_CTX16,
+    CODING_ORDER0,
+    CODING_RAW,
+    CTX_NIDX,
+)
+
+# Per-batch size ceiling: one plane batch must stay below 2^31 symbols, the
+# range of the kernels' int32 word offsets and counts.  Batches beyond it
+# raise before anything is allocated.
+MAX_DEVICE_SYMS = (1 << 31) - 1
 
 _DECISION_STRIDE = 16  # sampling stride for predictor decisions
 _HIST_STRIDE = 16  # sampling stride for rANS table histograms
@@ -233,25 +262,31 @@ def encode_model_step(
     )
 
     # preview delta prediction (F_PV_USE_DELTA) against the delta frame's
-    # preview, which both sides can compute
-    if use_delta_frame:
-        pvd = pv - generate_preview(delta_high[None])[0][None]
-        pv_use_delta = _residual_cost(pvd) < _residual_cost(pv)
-        pv2 = _where3(pv_use_delta, pvd, pv)
-    else:
+    # preview, which both sides can compute.  Frames under 4x4 have empty
+    # previews, whose candidates all cost the same: no delta, no predictor.
+    if pv.numel() == 0:
         pv_use_delta = no
-        pv2 = pv
-    p_up = up_encode(pv2)
-    p_cg = cg2d_encode(pv2)
-    pent = torch.stack(
-        [_residual_cost(pv2), _residual_cost(p_up), _residual_cost(p_cg)]
-    )
-    pv_spatial = torch.argmin(pent, dim=0).to(torch.int32)
-    pv3 = _where3(
-        pv_spatial == SPATIAL_UP,
-        p_up,
-        _where3(pv_spatial == SPATIAL_CG2D, p_cg, pv2),
-    )
+        pv_spatial = torch.zeros(b, dtype=torch.int32, device=dev)
+        pv3 = pv
+    else:
+        if use_delta_frame:
+            pvd = pv - generate_preview(delta_high[None])[0][None]
+            pv_use_delta = _residual_cost(pvd) < _residual_cost(pv)
+            pv2 = _where3(pv_use_delta, pvd, pv)
+        else:
+            pv_use_delta = no
+            pv2 = pv
+        p_up = up_encode(pv2)
+        p_cg = cg2d_encode(pv2)
+        pent = torch.stack(
+            [_residual_cost(pv2), _residual_cost(p_up), _residual_cost(p_cg)]
+        )
+        pv_spatial = torch.argmin(pent, dim=0).to(torch.int32)
+        pv3 = _where3(
+            pv_spatial == SPATIAL_UP,
+            p_up,
+            _where3(pv_spatial == SPATIAL_CG2D, p_cg, pv2),
+        )
     pv_hist = _exact_hist_256(pv3)
     return dict(
         high=high3,
@@ -331,14 +366,17 @@ def fused_encode_batch(
     big_endian: bool,
     chunk_len: int,
     low_coding: int = CODING_ORDER0,
+    allow_prev: bool = True,
 ):
-    """Whole-batch FPVT encode -> (frame flags u8 [B], (high, low, preview)
-    PlaneStreams), with static-delta and prev-frame temporal candidates.
-    Tables are normalized on the device; only tables, states, counts and
-    the tight payloads come to the host."""
+    """Whole-batch FPVT encode in the 1024-lane device geometry -> (frame
+    flags u8 [B], (high, low, preview) PlaneStreams; the preview is None
+    for frames under 4x4), with the static-delta and (``allow_prev``)
+    prev-frame temporal candidates.  Tables are normalized on the device;
+    only tables, states, counts and the tight payloads come to the host."""
     low_ctx = low_coding == CODING_CTX16
     m = encode_model_step(
-        imgs, delta_high, delta_low, shift, big_endian, True, low_ctx, True,
+        imgs, delta_high, delta_low, shift, big_endian, True, low_ctx,
+        allow_prev,
     )
     b = imgs.shape[0]
     streams = tuple(
@@ -347,10 +385,12 @@ def fused_encode_batch(
             pv_chunk_len(chunk_len) if name == "preview" else chunk_len,
             m[f"hist_{name}"], m[f"mask_{name}"],
             ctx=name == "low" and low_ctx,
-        )
+        ) if m[name].numel() else None
         for name in ("high", "low", "preview")
     )
     return _pack_flags(m), streams
+
+
 
 
 class FpvtWriter:
@@ -365,19 +405,28 @@ class FpvtWriter:
         frames_per_batch: int = 16,
         chunk_log2: int = 12,
         device="cuda",
+        delta_is_frame0: bool = False,
+        narrow: bool = True,
+        temporal_prev: bool = True,
     ) -> None:
-        """The delta frame given to :meth:`init` is frame 0 of the file
-        (HDR_F_DELTA_IS_FRAME0).  Batches may use prev-frame prediction
-        (F_USE_PREV, anchored every PREV_ANCHOR frames), as the JAX
-        writer's default does."""
-        if xsize < 4 or ysize < 4:
-            raise NotImplementedError(
-                "frames smaller than 4x4 (no preview stream) are not "
-                "supported by fpv_tpu_torch yet"
-            )
+        """``delta_is_frame0``: the delta frame given to :meth:`init` is
+        frame 0 of the file (HDR_F_DELTA_IS_FRAME0), so batches start at
+        frame 1.
+
+        ``narrow``: apply the small-batch encoder policy.  Batches of at
+        most NARROW_MAX_SYMS symbols take the per-plane route, whose plane
+        streams may be CODING_CONST or narrow (fewer stored chunk states);
+        the rest take the fused 1024-lane route.  The saving only matters
+        when the whole file is small, so :func:`encode_file_fpvt` decides
+        from the file's size.
+
+        ``temporal_prev``: allow per-frame prev-frame prediction
+        (F_USE_PREV, anchored every PREV_ANCHOR frames)."""
         if not 4 <= chunk_log2 <= 16:
             raise ValueError("chunk_log2 must be in [4, 16]")
         self._device = torch.device(device)
+        self._narrow = narrow
+        self._allow_prev = temporal_prev
         self.header = Header(
             xsize=xsize,
             ysize=ysize,
@@ -385,7 +434,7 @@ class FpvtWriter:
             big_endian=big_endian,
             chunk_log2=chunk_log2,
             frames_per_batch=frames_per_batch,
-            delta_is_frame0=True,
+            delta_is_frame0=delta_is_frame0,
         )
         self._chunk_len = 1 << chunk_log2
         # shift >= 4 guarantees the low plane's bottom nibble is zero,
@@ -398,24 +447,65 @@ class FpvtWriter:
         self._total_frames = 0
 
     def _put(self, frames: np.ndarray) -> torch.Tensor:
-        """u16 frames -> int32 tensor on the writer's device (uploaded as
-        16-bit words, widened there)."""
-        arr = np.ascontiguousarray(frames, dtype=np.uint16).view(np.int16)
+        """u16 (or u8) frames -> int32 tensor of u16 samples on the
+        writer's device (uploaded as 16- or 8-bit words, widened there)."""
+        arr = np.ascontiguousarray(frames)
+        if arr.dtype == np.uint8:
+            return torch.from_numpy(arr).to(self._device).to(torch.int32)
+        arr = arr.astype(np.uint16, copy=False).view(np.int16)
         return torch.from_numpy(arr).to(self._device).to(torch.int32) & 0xFFFF
+
+    def _put_planes(self, high: np.ndarray, low: np.ndarray | None):
+        """[..., H, W] u8 byte planes -> int32 left-aligned samples
+        ``high << 8 | low`` on the writer's device."""
+        high = np.ascontiguousarray(high, dtype=np.uint8)
+        imgs = self._put(high) << 8
+        if low is not None:
+            low = np.ascontiguousarray(low, dtype=np.uint8)
+            if low.shape != high.shape:
+                raise ValueError("low plane shape must match high plane")
+            imgs = imgs | self._put(low)
+        return imgs
 
     def init(self, delta_frame: np.ndarray) -> bytes:
         """Header + delta section bytes; keeps the delta planes on device.
 
-        The delta section's high plane takes the spatial predictor with the
-        least exact Shannon entropy (one frame, host-side decision), and
-        both planes are coded with host-normalized tables."""
+        uint8 delta frames are accepted under a shift-8 little-endian
+        header (8-bit direct input)."""
+        delta_frame = np.asarray(delta_frame)
+        if delta_frame.dtype == np.uint8:
+            validate_u8_config(self.header.shift, self.header.big_endian)
         img = self._put(
-            np.asarray(delta_frame).reshape(
-                1, self.header.ysize, self.header.xsize
-            )
+            delta_frame.reshape(1, self.header.ysize, self.header.xsize)
         )
+        return self._init_core(img, self.header.shift, self.header.big_endian)
+
+    def init_planes(
+        self, high: np.ndarray, low: np.ndarray | None = None
+    ) -> bytes:
+        """Plane-adopting twin of :meth:`init`: the delta frame enters as
+        pre-split [H, W] uint8 byte planes; the bytes equal :meth:`init`'s
+        on the combined image."""
+        h, w = self.header.ysize, self.header.xsize
+        if np.shape(high) != (h, w):
+            raise ValueError("high plane must be [ysize, xsize] uint8")
+        imgs = self._put_planes(high, low).reshape(1, h, w)
+        # the combined image is left-aligned: a shift-0 little-endian split
+        # recovers exactly the planes given
+        return self._init_core(imgs, 0, False)
+
+    def _init_core(
+        self, img: torch.Tensor, split_shift: int, split_big_endian: bool
+    ) -> bytes:
+        """The delta section of a [1, H, W] int32 image.
+
+        Its high plane takes the spatial predictor with the least exact
+        Shannon entropy (one frame, host-side decision).  Small delta planes
+        (narrow writers, at most 512 Ki pixels) take the narrow policy with
+        exact histograms; larger ones keep 1024 lanes and row-sampled
+        histograms.  Both planes are coded with host-normalized tables."""
         high, low, nonzero_low = split_planes(
-            img, self.header.shift, self.header.big_endian
+            img, split_shift, split_big_endian
         )
         self._delta_high = high[0]
         self._delta_low = low[0]
@@ -429,22 +519,25 @@ class FpvtWriter:
 
         spatial = int(np.argmin([_entropy_bits(c) for c in cands]))
         hres = cands[spatial]
-        hs = encode_plane_batch(
-            hres.reshape(1, -1),
-            _batch_hist(hres).cpu().numpy(),
-            self._chunk_len,
-            mask=_support_mask(hres).cpu().numpy(),
+        small = self._narrow and (
+            self.header.ysize * self.header.xsize
+            <= min(512 * 1024, plane_codec.NARROW_MAX_SYMS)
         )
-        ls = None
-        if has_low:
-            order0 = self._low_coding == CODING_ORDER0
-            ls = encode_plane_batch(
-                low.reshape(1, -1),
-                _batch_hist(low).cpu().numpy() if order0 else None,
+
+        def code(plane: torch.Tensor, coding: int) -> PlaneStream:
+            order0 = coding == CODING_ORDER0 and not small
+            return encode_plane_batch(
+                plane.reshape(1, -1),
+                _batch_hist(plane).cpu().numpy() if order0 else None,
                 self._chunk_len,
-                coding=self._low_coding,
-                mask=_support_mask(low).cpu().numpy() if order0 else None,
+                coding=coding,
+                mask=_support_mask(plane).cpu().numpy() if order0 else None,
+                lanes="auto" if small else None,
+                allow_raw=True,
             )
+
+        hs = code(hres, CODING_ORDER0)
+        ls = code(low, self._low_coding) if has_low else None
         dflags = (0 if has_low else F_NO_LOW) | (spatial << F_SPATIAL_SHIFT)
         out = self.header.serialize() + fpvt.serialize_delta_section(
             dflags, hs, ls
@@ -452,25 +545,114 @@ class FpvtWriter:
         self._bytes_written = len(out)
         return out
 
-    def encode_batch(self, imgs: np.ndarray) -> bytes:
-        """Encode [B, H, W] uint16 frames -> the next batch section."""
+    def encode_batch_bytes(
+        self, imgs: np.ndarray, timestamps: np.ndarray | None = None
+    ) -> bytes:
+        """Encode [B, H, W] uint16 (or, under a shift-8 little-endian
+        header, uint8) frames -> one batch section, without recording it
+        (see :meth:`add_batch`)."""
         if self._delta_high is None:
             raise RuntimeError("init() must be called first")
-        flags, (hs, ls, pvs) = fused_encode_batch(
-            self._put(imgs),
-            self._delta_high,
-            self._delta_low,
-            self.header.shift,
-            self.header.big_endian,
-            self._chunk_len,
-            low_coding=self._low_coding,
+        imgs = np.asarray(imgs)
+        if imgs.dtype == np.uint8:
+            validate_u8_config(self.header.shift, self.header.big_endian)
+        return self._encode_batch_core(
+            self._put(imgs), self.header.shift, self.header.big_endian,
+            timestamps,
         )
-        timestamps = np.full(len(flags), -1, dtype=np.int64)
-        section = fpvt.serialize_batch_section(flags, timestamps, hs, ls, pvs)
-        self._batch_offsets.append((self._bytes_written, len(flags)))
+
+    def encode_batch_planes_bytes(
+        self,
+        high: np.ndarray,
+        low: np.ndarray | None = None,
+        timestamps: np.ndarray | None = None,
+    ) -> bytes:
+        """Pre-split byte-plane ingest: ``high`` (and optional ``low``) are
+        [B, H, W] uint8 planes as the writer's shift config would have split
+        them; the bytes equal :meth:`encode_batch_bytes`'s on the combined
+        frames."""
+        if self._delta_high is None:
+            raise RuntimeError("init() must be called first")
+        if np.ndim(high) != 3:
+            raise ValueError("high must be [B, H, W] uint8")
+        imgs = self._put_planes(high, low)
+        return self._encode_batch_core(imgs, 0, False, timestamps)
+
+    def encode_batch_planes(
+        self,
+        high: np.ndarray,
+        low: np.ndarray | None = None,
+        timestamps: np.ndarray | None = None,
+    ) -> bytes:
+        """Plane-ingest twin of :meth:`encode_batch` (records the batch)."""
+        return self.add_batch(
+            self.encode_batch_planes_bytes(high, low, timestamps),
+            np.shape(high)[0],
+        )
+
+    def _encode_batch_core(
+        self,
+        imgs: torch.Tensor,
+        split_shift: int,
+        split_big_endian: bool,
+        timestamps: np.ndarray | None,
+    ) -> bytes:
+        b = imgs.shape[0]
+        h, w = self.header.ysize, self.header.xsize
+        n_main = b * h * w
+        if n_main > MAX_DEVICE_SYMS:
+            raise ValueError(
+                "batch too large for the device codec (2^31 symbols); "
+                "use smaller frames_per_batch"
+            )
+        if not self._narrow or n_main > plane_codec.NARROW_MAX_SYMS:
+            flags, (hs, ls, pvs) = fused_encode_batch(
+                imgs, self._delta_high, self._delta_low, split_shift,
+                split_big_endian, self._chunk_len,
+                low_coding=self._low_coding, allow_prev=self._allow_prev,
+            )
+        else:
+            m = encode_model_step(
+                imgs, self._delta_high, self._delta_low, split_shift,
+                split_big_endian, True, self._low_coding == CODING_CTX16,
+                self._allow_prev,
+            )
+
+            def code(name: str, chunk_len: int, coding: int = CODING_ORDER0):
+                order0 = coding == CODING_ORDER0
+                return encode_plane_batch(
+                    m[name].reshape(b, -1),
+                    m[f"hist_{name}"].cpu().numpy() if order0 else None,
+                    chunk_len,
+                    coding=coding,
+                    mask=m[f"mask_{name}"].cpu().numpy() if order0 else None,
+                    lanes="auto",
+                )
+
+            hs = code("high", self._chunk_len)
+            pvs = (code("preview", pv_chunk_len(self._chunk_len))
+                   if m["preview"].numel() else None)
+            ls = code("low", self._chunk_len, self._low_coding)
+            flags = _pack_flags(m)
+        if timestamps is None:
+            timestamps = np.full(b, -1, dtype=np.int64)
+        return fpvt.serialize_batch_section(flags, timestamps, hs, ls, pvs)
+
+    def add_batch(self, section: bytes, nframes: int) -> bytes:
+        """Record a section from :meth:`encode_batch_bytes` as the next
+        batch in file order; returns the section unchanged."""
+        self._batch_offsets.append((self._bytes_written, nframes))
         self._bytes_written += len(section)
-        self._total_frames += len(flags)
+        self._total_frames += nframes
         return section
+
+    def encode_batch(
+        self, imgs: np.ndarray, timestamps: np.ndarray | None = None
+    ) -> bytes:
+        """Encode [B, H, W] frames -> the next batch section (recorded)."""
+        return self.add_batch(
+            self.encode_batch_bytes(imgs, timestamps), np.shape(imgs)[0]
+        )
 
     def finish(self) -> bytes:
         return fpvt.serialize_footer(self._batch_offsets, self._total_frames)
@@ -494,16 +676,29 @@ def _inverse_spatial(res: torch.Tensor, spatial: np.ndarray) -> torch.Tensor:
     return out
 
 
+def _inverse_preview(
+    pv: torch.Tensor, flags: np.ndarray, delta_high: torch.Tensor
+) -> torch.Tensor:
+    """Invert a [B, ph, pw] preview residual batch: each frame's spatial
+    prediction, then the delta against the delta frame's preview
+    (F_PV_USE_DELTA)."""
+    pv = _inverse_spatial(pv, (flags >> F_PV_SPATIAL_SHIFT) & 3)
+    use_delta = (flags & F_PV_USE_DELTA) != 0
+    if use_delta.any():
+        pv_delta = generate_preview(delta_high[None])
+        pv = _where3(torch.from_numpy(use_delta).to(pv.device),
+                     pv + pv_delta, pv)
+    return pv
+
+
 def _decode_delta_planes(dflags, dh_stream, dl_stream, h, w, device):
     """Decode the delta-section planes, inverting the high plane's spatial
-    prediction recorded in dflags bits 1-2 (see FpvtWriter.init)."""
-    dh = decode_plane_batch(dh_stream, device, "delta-section high")
-    dh = dh.reshape(1, h, w)
+    prediction recorded in dflags bits 1-2 (see FpvtWriter._init_core)."""
+    dh = decode_plane_batch(dh_stream, device).reshape(1, h, w)
     dh = _inverse_spatial(dh, np.array([(dflags >> F_SPATIAL_SHIFT) & 3]))
     if dl_stream is None:
         return dh[0], torch.zeros((h, w), dtype=torch.uint8, device=device)
-    dl = decode_plane_batch(dl_stream, device, "delta-section low")
-    return dh[0], dl.reshape(h, w)
+    return dh[0], decode_plane_batch(dl_stream, device).reshape(h, w)
 
 
 def _apply_temporal(high, low, flags, delta_high, delta_low):
@@ -537,63 +732,273 @@ def _to_u16(high: torch.Tensor, low: torch.Tensor) -> np.ndarray:
     return to_int16(combine_planes(high, low)).cpu().numpy().view(np.uint16)
 
 
-def fused_decode_batch(
-    pb: fpvt.ParsedBatch,
-    delta_high: torch.Tensor,
-    delta_low: torch.Tensor,
-    h: int,
-    w: int,
-    device,
-) -> np.ndarray:
-    """Decode a parsed batch section -> [B, H, W] uint16 (left-aligned)."""
-    b = len(pb.frame_flags)
-    high = decode_plane_batch(pb.high, device, "high").reshape(b, h, w)
-    if pb.low is not None:
-        low = decode_plane_batch(pb.low, device, "low").reshape(b, h, w)
-    else:
-        low = torch.zeros((b, h, w), dtype=torch.uint8, device=device)
-    flags = pb.frame_flags
-    high = _inverse_spatial(high, (flags >> F_SPATIAL_SHIFT) & 3)
-    high, low = _apply_temporal(high, low, flags, delta_high, delta_low)
-    return _to_u16(high, low)
+def _check_batch_size(pb: fpvt.ParsedBatch) -> None:
+    if len(pb.frame_flags) * pb.high.plane_size > MAX_DEVICE_SYMS:
+        raise ValueError("batch too large for the device codec (2^31 symbols)")
 
 
 class FpvtReader:
-    """FPVT reader: each batch section decodes on ``device``."""
+    """Random-access FPVT reader: batches, single frames and previews
+    decode on ``device``."""
 
     def __init__(self, data: bytes, device="cuda") -> None:
-        self._device = torch.device(device)
+        self._open(data, device)
         self._data = bytes(data)
-        self.header = Header.parse(self._data)
+        self._batches = fpvt.parse_footer(self._data)
+        self._frame_to_batch: list[tuple[int, int]] = []
+        if self.header.delta_is_frame0:
+            # frame 0 is the delta frame itself (HDR_F_DELTA_IS_FRAME0)
+            self._frame_to_batch.append((-1, 0))
+        for bi, (_off, n) in enumerate(self._batches):
+            self._frame_to_batch.extend((bi, j) for j in range(n))
+
+    def _open(self, data: bytes, device) -> None:
+        """Parse the header and decode the delta section (the part of the
+        reader the streaming reader shares)."""
+        self._device = torch.device(device)
+        self.header = Header.parse(data)
         h, w = self.header.ysize, self.header.xsize
         dflags, dh_stream, dl_stream = fpvt.parse_delta_section(
-            self._data, fpvt.HEADER_SIZE, plane_size=h * w
+            data, fpvt.HEADER_SIZE, plane_size=h * w
         )
         self._delta_high, self._delta_low = _decode_delta_planes(
             dflags, dh_stream, dl_stream, h, w, self._device
         )
-        self._batches = fpvt.parse_footer(self._data)
+        # the last whole batch decoded: (batch index, frames)
+        self._cache: tuple[int, np.ndarray] | None = None
+        # the last frame a prev chain reconstructed: (batch index, frame
+        # index, high, low), so sequential decode_frame calls continue the
+        # chain instead of re-decoding its prefix
+        self._chain_cache: tuple | None = None
+
+    def _parse_batch(self, off: int) -> fpvt.ParsedBatch:
+        """parse_batch_section with this file's frame geometry enforced
+        (crafted plane_size fields are rejected before any allocation)."""
+        h, w = self.header.ysize, self.header.xsize
+        return fpvt.parse_batch_section(
+            self._data, off, plane_size=h * w,
+            preview_size=(h // 4) * (w // 4),
+        )
 
     def frame0(self) -> np.ndarray:
-        """The delta frame, which is frame 0 when the header declares
-        HDR_F_DELTA_IS_FRAME0 (left-aligned u16, like decode_batch)."""
+        """The synthesized first frame when the header declares the delta
+        frame doubles as frame 0 (left-aligned u16, like decode_batch)."""
+        return self.delta_frame()
+
+    def delta_frame(self) -> np.ndarray:
+        """The file's delta frame (left-aligned uint16 [H, W]), the frame
+        every batch's delta prediction references."""
         return _to_u16(self._delta_high[None], self._delta_low[None])[0]
+
+    @property
+    def numframes(self) -> int:
+        return len(self._frame_to_batch)
 
     @property
     def num_batches(self) -> int:
         return len(self._batches)
 
+    def timestamps(self, index: int) -> np.ndarray:
+        """Batch ``index``'s per-frame i64 timestamps (-1 where none)."""
+        off, _b = self._batches[index]
+        return self._parse_batch(off).timestamps
+
+    def _decode_parsed_batch(
+        self, pb: fpvt.ParsedBatch, b: int, want_previews: bool = False
+    ) -> tuple[np.ndarray, np.ndarray | None]:
+        """Decode a parsed batch -> (frames u16 [B, H, W], previews u8
+        [B, H//4, W//4] or None).  Every plane stream decodes by its own
+        coding and geometry (wide, narrow, const or raw)."""
+        _check_batch_size(pb)
+        h, w = self.header.ysize, self.header.xsize
+        dev = self._device
+        high = decode_plane_batch(pb.high, dev).reshape(b, h, w)
+        if pb.low is not None:
+            low = decode_plane_batch(pb.low, dev).reshape(b, h, w)
+        else:
+            low = torch.zeros((b, h, w), dtype=torch.uint8, device=dev)
+        flags = pb.frame_flags
+        high = _inverse_spatial(high, (flags >> F_SPATIAL_SHIFT) & 3)
+        high, low = _apply_temporal(
+            high, low, flags, self._delta_high, self._delta_low
+        )
+        pv = self._decode_previews_parsed(pb, b) if want_previews else None
+        return _to_u16(high, low), pv
+
     def decode_batch(self, index: int) -> np.ndarray:
         """Decode batch ``index`` -> [B, H, W] uint16 (left-aligned values)."""
-        off, _b = self._batches[index]
+        off, b = self._batches[index]
+        return self._decode_parsed_batch(self._parse_batch(off), b)[0]
+
+    def decode_frame(self, index: int) -> np.ndarray:
+        """Random-access decode of ONE frame by global frame index ->
+        [H, W] uint16 (left-aligned).
+
+        Serves from the batch cache when its batch was decoded last;
+        otherwise, for 1024-lane streams, decodes only the rANS blocks
+        covering the frame, walking a prev-frame chain back to its anchor
+        (the writer bounds chains to PREV_ANCHOR - 1 frames).  A narrow
+        stream is one block (NARROW_MAX_K * lanes covers a whole narrow
+        batch), and a chain beyond 2 * PREV_ANCHOR frames costs more than
+        its batch: both decode the whole batch and cache it instead."""
+        bi, j = self._frame_to_batch[index]
+        if bi == -1:
+            return self.frame0()
+        if self._cache is not None and self._cache[0] == bi:
+            return self._cache[1][j]
+        off, b = self._batches[bi]
+        pb = self._parse_batch(off)
+        j0 = j
+        while j0 > 0 and pb.frame_flags[j0] & F_USE_PREV:
+            j0 -= 1
+        wide = all(
+            st.coding in (CODING_CONST, CODING_RAW) or st.lanes == BLOCK_LANES
+            for st in (pb.high, pb.low) if st is not None
+        )
+        if not wide or j - j0 > 2 * PREV_ANCHOR:
+            self._cache = (bi, self._decode_parsed_batch(pb, b)[0])
+            return self._cache[1][j]
+        _check_batch_size(pb)
+        t0, ph, pl = j0, self._delta_high, self._delta_low
+        cc = self._chain_cache
+        if cc is not None and cc[0] == bi and j0 <= cc[1] < j:
+            t0, ph, pl = cc[1] + 1, cc[2], cc[3]
+        for t in range(t0, j + 1):
+            ph, pl = self._decode_frame_planes(pb, t, ph, pl)
+        self._chain_cache = (bi, j, ph, pl)
+        return _to_u16(ph[None], pl[None])[0]
+
+    def _decode_frame_planes(
+        self, pb: fpvt.ParsedBatch, t: int, prev_high: torch.Tensor,
+        prev_low: torch.Tensor,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Frame ``t`` of a parsed batch -> its (high, low) [H, W] u8
+        planes, from the covering blocks only; ``prev_high``/``prev_low``
+        are frame t-1's planes (the delta planes for frame 0), which
+        F_USE_PREV adds."""
         h, w = self.header.ysize, self.header.xsize
-        pb = fpvt.parse_batch_section(
-            self._data, off, plane_size=h * w,
-            preview_size=(h // 4) * (w // 4),
+        dev = self._device
+        flags = int(pb.frame_flags[t])
+        s = h * w
+        high = decode_plane_range(pb.high, dev, t * s, (t + 1) * s)
+        high = _inverse_spatial(
+            high.reshape(1, h, w), np.array([(flags >> F_SPATIAL_SHIFT) & 3])
+        )[0]
+        if pb.low is not None:
+            low = decode_plane_range(pb.low, dev, t * s, (t + 1) * s)
+            low = low.reshape(h, w)
+        else:
+            low = torch.zeros((h, w), dtype=torch.uint8, device=dev)
+        if flags & F_USE_PREV:
+            return high + prev_high, low + prev_low
+        if flags & F_USE_DELTA:
+            return high + self._delta_high, low + self._delta_low
+        return high, low
+
+    def decode_batch_with_previews(
+        self, index: int
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Decode batch ``index``'s frames and previews."""
+        off, b = self._batches[index]
+        return self._decode_parsed_batch(
+            self._parse_batch(off), b, want_previews=True
         )
-        return fused_decode_batch(
-            pb, self._delta_high, self._delta_low, h, w, self._device
-        )
+
+    def preview_frame(self, index: int) -> np.ndarray:
+        """Preview of ONE frame by global frame index -> [H//4, W//4] u8.
+        Frame 0 of a HDR_F_DELTA_IS_FRAME0 file has no preview stream: its
+        preview is made from the delta high plane."""
+        bi, j = self._frame_to_batch[index]
+        if bi == -1:
+            return generate_preview(self._delta_high[None])[0].cpu().numpy()
+        return self.decode_previews(bi)[j]
+
+    def decode_previews(self, index: int) -> np.ndarray:
+        """Decode batch ``index``'s previews -> [B, H//4, W//4] uint8,
+        without touching its main planes."""
+        off, b = self._batches[index]
+        return self._decode_previews_parsed(self._parse_batch(off), b)
+
+    def _decode_previews_parsed(
+        self, pb: fpvt.ParsedBatch, b: int
+    ) -> np.ndarray:
+        ph, pw = self.header.ysize // 4, self.header.xsize // 4
+        if pb.preview is None:
+            if ph * pw == 0:
+                return np.zeros((b, ph, pw), np.uint8)
+            raise ValueError("batch has no preview stream")
+        res = decode_plane_batch(pb.preview, self._device).reshape(b, ph, pw)
+        return _inverse_preview(
+            res, pb.frame_flags, self._delta_high
+        ).cpu().numpy()
+
+
+class FpvtStreamingReader:
+    """Incremental FPVT decoder: feed bytes, get frames per completed batch.
+
+    Consumes the header and delta section once, then decodes every complete
+    batch section as it arrives; the footer (if ever seen) ends the stream,
+    so a truncated file without footer streams fully."""
+
+    def __init__(self, callback, want_previews: bool = False,
+                 device="cuda") -> None:
+        """``callback(frames u16 [B, H, W], timestamps i64 [B])`` per batch;
+        with ``want_previews`` it receives a third argument, the
+        [B, H//4, W//4] u8 previews."""
+        self._callback = callback
+        self._want_previews = want_previews
+        self._device = device
+        self._buffer = bytearray()
+        self._inner: FpvtReader | None = None
+        self._pos = 0
+
+    def _emit(self, imgs, ts, pv) -> None:
+        if self._want_previews:
+            self._callback(imgs, ts, pv)
+        else:
+            self._callback(imgs, ts)
+
+    def decode(self, data: bytes) -> None:
+        self._buffer += data
+        buf = self._buffer
+        if self._inner is None:
+            if len(buf) < fpvt.HEADER_SIZE + 9:
+                return
+            (dsize,) = struct.unpack_from("<Q", buf, fpvt.HEADER_SIZE)
+            if len(buf) < fpvt.HEADER_SIZE + dsize:
+                return
+            inner = FpvtReader.__new__(FpvtReader)
+            inner._open(bytes(buf[: fpvt.HEADER_SIZE + dsize]), self._device)
+            self._inner = inner
+            self._pos = fpvt.HEADER_SIZE + dsize
+            if inner.header.delta_is_frame0:
+                pv0 = None
+                if self._want_previews:
+                    pv0 = generate_preview(inner._delta_high[None]).cpu()
+                    pv0 = pv0.numpy()
+                self._emit(inner.frame0()[None], np.full(1, -1, np.int64),
+                           pv0)
+        hh, ww = self._inner.header.ysize, self._inner.header.xsize
+        while len(buf) - self._pos >= 9:
+            size, stype = struct.unpack_from("<QB", buf, self._pos)
+            if stype == fpvt.SECTION_INDEX:
+                break  # footer: end of frames
+            if len(buf) - self._pos < size:
+                break  # incomplete section
+            pb = fpvt.parse_batch_section(
+                bytes(buf[self._pos : self._pos + size]), 0,
+                plane_size=hh * ww, preview_size=(hh // 4) * (ww // 4),
+            )
+            imgs, pv = self._inner._decode_parsed_batch(
+                pb, len(pb.frame_flags), want_previews=self._want_previews
+            )
+            self._emit(imgs, pb.timestamps, pv)
+            self._pos += size
+        # drop consumed bytes on every exit path, or a long stream's buffer
+        # would keep everything decoded so far
+        if self._pos > 1 << 22:
+            del self._buffer[: self._pos]
+            self._pos = 0
 
 
 def encode_file_fpvt(
@@ -602,35 +1007,63 @@ def encode_file_fpvt(
     big_endian: bool = False,
     frames_per_batch: int = 16,
     chunk_log2: int = 12,
+    delta_frame: np.ndarray | None = None,
+    timestamps: np.ndarray | None = None,
     device="cuda",
 ) -> bytes:
-    """One-shot FPVT encode of [N, H, W] uint16 frames.
+    """One-shot FPVT encode of [N, H, W] uint16 (or uint8) frames.
 
-    Frame 0 is stored once as the delta section (HDR_F_DELTA_IS_FRAME0)
-    and the rest are coded in batches of ``frames_per_batch``.  Every batch
-    timestamp is -1."""
+    Without ``delta_frame``, frame 0 is stored once as the delta section
+    (HDR_F_DELTA_IS_FRAME0) and its timestamp is dropped with it (the
+    synthesized frame 0 reports -1); the rest are coded in batches of
+    ``frames_per_batch``.  ``timestamps``: optional per-frame i64 array.
+    uint8 frames ride the shift-8 little-endian layout (shift 0 promotes to
+    8).  The narrow-stream policy is decided from the total body size: the
+    stored chunk states it saves only matter when the file is small."""
     frames = np.asarray(frames)
-    if frames.dtype == np.uint8:
-        raise NotImplementedError(
-            "uint8 input is not supported by fpv_tpu_torch yet"
-        )
-    frames = frames.astype(np.uint16, copy=False)
+    shift = resolve_u8_shift(frames.dtype, shift, big_endian)
+    if frames.dtype != np.uint8:
+        frames = frames.astype(np.uint16, copy=False)
     n, h, w = frames.shape
+    if timestamps is not None:
+        timestamps = np.asarray(timestamps, dtype=np.int64)
+        if timestamps.shape != (n,):
+            raise ValueError("timestamps must have one entry per frame")
+    delta_is_frame0 = delta_frame is None
+    if delta_is_frame0:
+        delta_frame, body = frames[0], frames[1:]
+        ts_body = None if timestamps is None else timestamps[1:]
+    else:
+        body, ts_body = frames, timestamps
     wri = FpvtWriter(
-        w, h, shift, big_endian, frames_per_batch, chunk_log2, device=device
+        w, h, shift, big_endian, frames_per_batch, chunk_log2, device=device,
+        delta_is_frame0=delta_is_frame0,
+        narrow=body.size <= plane_codec.NARROW_MAX_SYMS,
     )
-    parts = [wri.init(frames[0])]
-    for s in range(1, n, frames_per_batch):
-        parts.append(wri.encode_batch(frames[s : s + frames_per_batch]))
+    parts = [wri.init(delta_frame)]
+    for s in range(0, body.shape[0], frames_per_batch):
+        parts.append(wri.encode_batch(
+            body[s : s + frames_per_batch],
+            None if ts_body is None else ts_body[s : s + frames_per_batch],
+        ))
     parts.append(wri.finish())
     return b"".join(parts)
 
 
-def decode_file_fpvt(data: bytes, device="cuda") -> np.ndarray:
-    """One-shot FPVT decode -> [N, H, W] uint16 (left-aligned values)."""
+def decode_file_fpvt(data: bytes, dtype=np.uint16, device="cuda") -> np.ndarray:
+    """One-shot FPVT decode -> [N, H, W] uint16 (left-aligned values).
+
+    ``dtype=np.uint8`` returns the original 8-bit samples of a file written
+    from uint8 frames; the header's shift must say so."""
     r = FpvtReader(data, device=device)
+    as_u8 = np.dtype(dtype) == np.uint8
+    if as_u8:
+        validate_u8_config(r.header.shift, r.header.big_endian)
     outs = [r.decode_batch(i) for i in range(r.num_batches)]
     if r.header.delta_is_frame0:
         outs.insert(0, r.frame0()[None])
     h, w = r.header.ysize, r.header.xsize
-    return np.concatenate(outs) if outs else np.zeros((0, h, w), np.uint16)
+    out = np.concatenate(outs) if outs else np.zeros((0, h, w), np.uint16)
+    if as_u8:
+        return (out >> 8).astype(np.uint8)
+    return out.astype(dtype, copy=False)

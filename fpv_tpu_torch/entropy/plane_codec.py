@@ -4,7 +4,8 @@ One ``PlaneStream`` holds the entropy-coded bytes of one byte plane across a
 whole batch of frames, sharing a single frequency table, in the
 block-interleaved layout of ``fpv_tpu_torch.ops.rans_layout``.  The coding
 itself runs through ``ops.rans_cuda`` (K1/K2 on CUDA tensors, their plain
-versions on CPU tensors); this package codes 1024-lane streams only.
+versions on CPU tensors), for the 1024-lane device geometry and for narrow
+streams alike.
 """
 
 from __future__ import annotations
@@ -25,10 +26,35 @@ from fpv_tpu_torch.ops.rans_layout import (
     CTX_ALPHA,
     CTX_NIDX,
     CTX_PROB_BITS,
+    LANES_MIN,
     PROB_BITS,
     chunk_lens,
     num_blocks,
+    num_segments,
 )
+
+# Narrow-stream encoder policy (rans_layout LANES_MIN): plane batches of at
+# most this many symbols store fewer chunk states by using fewer lanes
+# (each 1024-lane block costs ~3 KB of stored states).  Read at call time,
+# so a test can lower it.
+NARROW_MAX_SYMS = 4 << 20
+
+# Longest chunk a narrow stream may use (bounds the serial steps of one
+# block and the per-(block, segment) count array; the format itself allows
+# up to 65536).
+NARROW_MAX_K = 32768
+
+
+def narrow_geometry(n: int) -> tuple[int, int]:
+    """(lanes, stream chunk_len) for a small plane batch of n symbols.
+
+    Narrow streams pick their own chunk length (one chunk spanning the
+    whole lane where possible); the caller's chunk_len is not honored."""
+    lanes = LANES_MIN
+    while lanes < BLOCK_LANES and -(-n // lanes) > NARROW_MAX_K:
+        lanes *= 2
+    k = max(16, 1 << max(0, (-(-n // lanes)) - 1).bit_length())
+    return lanes, min(k, NARROW_MAX_K)
 
 
 @dataclasses.dataclass
@@ -127,29 +153,23 @@ def coded_stream_bytes(num_chunks: int, num_groups: int, total_words: int) -> in
 # device-side layout shuffles
 
 
-def _to_block_symbols(plane: torch.Tensor, chunk_len: int, nblocks: int):
-    """[B, S] u8 -> [nblocks, K, 1024] u8 — a pure reshape (zero-padded).
+def _to_block_symbols(
+    plane: torch.Tensor, chunk_len: int, nblocks: int,
+    lanes: int = BLOCK_LANES,
+):
+    """[B, S] u8 -> [nblocks, K, lanes] u8 — a pure reshape (zero-padded).
 
     With the interleaved lane layout (rans_layout.chunk_lens), the
     step-major array IS the flat symbol stream."""
     flat = plane.reshape(-1)
-    pad = nblocks * chunk_len * BLOCK_LANES - flat.numel()
+    pad = nblocks * chunk_len * lanes - flat.numel()
     if pad:
         flat = torch.cat([flat, flat.new_zeros(pad)])
-    return flat.reshape(nblocks, chunk_len, BLOCK_LANES)
-
-
-def _from_block_symbols(
-    syms: torch.Tensor, nframes: int, plane_size: int
-) -> torch.Tensor:
-    """[nblocks, K, 1024] u8 -> [B, S] u8 (pure reshape)."""
-    return syms.reshape(-1)[: nframes * plane_size].reshape(
-        nframes, plane_size
-    )
+    return flat.reshape(nblocks, chunk_len, lanes)
 
 
 def ctx_combine_device(prev: torch.Tensor, sym4: torch.Tensor) -> torch.Tensor:
-    """(previous-step symbols, symbols) [nb, K', 1024] -> int64 fc indices
+    """(previous-step symbols, symbols) [nb, K', lanes] -> int64 fc indices
     ctx*16+sym (ctx feature defined in rans_layout)."""
     p = prev.to(torch.int64)
     al = torch.roll(p, 1, dims=2)
@@ -159,7 +179,7 @@ def ctx_combine_device(prev: torch.Tensor, sym4: torch.Tensor) -> torch.Tensor:
 
 
 def ctx_indices_device(sym4: torch.Tensor) -> torch.Tensor:
-    """[nb, K, 1024] nibble symbols (zero-padded) -> fc indices ctx*16+sym."""
+    """[nb, K, lanes] nibble symbols (zero-padded) -> fc indices ctx*16+sym."""
     prev = torch.cat([torch.zeros_like(sym4[:, :1]), sym4[:, :-1]], dim=1)
     return ctx_combine_device(prev, sym4)
 
@@ -176,11 +196,14 @@ def _hist_flat(x: torch.Tensor, nbins: int) -> torch.Tensor:
     return torch.bincount(x.reshape(-1).to(torch.int64), minlength=nbins)
 
 
-def lens_tensor(nframes: int, plane_size: int, chunk_len: int, device):
-    """Lane lengths [nblocks, 1024] int32 of a plane batch's 1024-lane
-    stream (rans_layout.chunk_lens)."""
-    lens = chunk_lens(nframes, plane_size, chunk_len)
-    return torch.from_numpy(lens.reshape(-1, BLOCK_LANES)).to(device)
+def lens_tensor(
+    nframes: int, plane_size: int, chunk_len: int, device,
+    lanes: int = BLOCK_LANES,
+):
+    """Lane lengths [nblocks, lanes] int32 of a plane batch's stream
+    (rans_layout.chunk_lens)."""
+    lens = chunk_lens(nframes, plane_size, chunk_len, lanes)
+    return torch.from_numpy(lens.reshape(-1, lanes)).to(device)
 
 
 def code_blocks(
@@ -190,19 +213,21 @@ def code_blocks(
     fc: torch.Tensor,
     freq: np.ndarray,
     coding: int,
+    allow_raw: bool = True,
 ) -> PlaneStream:
-    """K1 on block symbols, then the CODING_RAW policy: the [B, S] residual
-    ``plane`` is stored verbatim whenever that is not larger than the coded
-    stream (ties go to raw — same bytes, no decode kernel).  The sizes come
-    from the counts alone, so a losing payload is never serialized."""
+    """K1 on block symbols [nblocks, K, lanes], then (``allow_raw``) the
+    CODING_RAW policy: the [B, S] residual ``plane`` is stored verbatim
+    whenever that is not larger than the coded stream (ties go to raw —
+    same bytes, no decode kernel).  The sizes come from the counts alone,
+    so a losing payload is never serialized."""
     b, s = plane.shape
-    k = syms.shape[1]
+    _nb, k, lanes = syms.shape
     ctx = coding == CODING_CTX16
     states, counts, payload = rans_cuda.rans_encode(
         syms, lens, fc, CTX_PROB_BITS if ctx else PROB_BITS, ctx
     )
     coded = coded_stream_bytes(lens.numel(), counts.numel(), payload.numel())
-    if raw_stream_bytes(b * s) <= coded:
+    if allow_raw and raw_stream_bytes(b * s) <= coded:
         return raw_plane_stream(b, s, k, plane.cpu().numpy())
     return PlaneStream(
         nframes=b, plane_size=s, chunk_len=k,
@@ -211,6 +236,7 @@ def code_blocks(
         block_counts=counts.cpu().numpy().astype(np.uint32),
         payload=payload.cpu().numpy().view(np.uint16),
         coding=coding,
+        lanes=lanes,
     )
 
 
@@ -220,73 +246,149 @@ def encode_plane_batch(
     chunk_len: int,
     coding: int = CODING_ORDER0,
     mask: np.ndarray | None = None,
+    lanes: int | str | None = None,
+    allow_raw: bool | None = None,
 ) -> PlaneStream:
-    """Encode a [B, S] (or [B, H, W]) uint8 plane batch with host tables,
-    applying the CODING_RAW policy.
+    """Encode a [B, S] (or [B, H, W]) uint8 plane batch with host tables.
 
     ``hist`` is the 256-bin (order-0) histogram, ``mask`` an optional
-    exact-support superset (tables.normalize_freqs floor_mask).  With
-    ``coding=CODING_CTX16`` (nibble alphabet + conditional tables) the joint
-    (ctx, sym) histogram is computed here over the whole block array
-    (padding included) and ``hist`` is ignored.
+    exact-support superset (tables.normalize_freqs floor_mask); with
+    ``hist=None`` an exact histogram is taken here and its support is the
+    mask.  With ``coding=CODING_CTX16`` (nibble alphabet + conditional
+    tables) the joint (ctx, sym) histogram is computed here and ``hist`` is
+    ignored: over the whole block array, padding included, for 1024-lane
+    streams (the device route's exact-support superset), and over the
+    coded positions only (exact) for narrow streams.
+
+    ``lanes="auto"`` applies the encoder policy: constant plane batches
+    short-circuit to a CODING_CONST stream, and batches of at most
+    NARROW_MAX_SYMS symbols become narrow streams (:func:`narrow_geometry`,
+    possibly with a longer chunk_len).  ``lanes="wide"`` applies only the
+    const short-circuit and keeps 1024 lanes.  None and explicit lane
+    counts pin the geometry and never change coding or chunk_len.
+
+    ``allow_raw`` (default: on exactly for "auto"/"wide") replaces the
+    coded stream with a CODING_RAW store whenever that is not larger.
     """
     b = plane.shape[0]
     plane = plane.reshape(b, -1)
-    lens = lens_tensor(b, plane.shape[1], chunk_len, plane.device)
+    s = plane.shape[1]
+    n = b * s
+    auto = lanes in ("auto", "wide")
+    if allow_raw is None:
+        allow_raw = auto
+    if auto:
+        if lanes == "auto" and 0 < n <= NARROW_MAX_SYMS:
+            lanes, chunk_len = narrow_geometry(n)
+        else:
+            lanes = BLOCK_LANES
+    elif lanes is None:
+        lanes = BLOCK_LANES
+    if auto and n:
+        vmin, vmax = (int(v) for v in torch.aminmax(plane))
+        if vmin == vmax:
+            return const_plane_stream(b, s, chunk_len, vmin)
+    syms, lens, fc, freq = plane_blocks(plane, chunk_len, lanes, coding,
+                                        hist, mask)
+    return code_blocks(plane, syms, lens, fc, freq, coding, allow_raw)
+
+
+def plane_blocks(
+    plane: torch.Tensor,
+    chunk_len: int,
+    lanes: int,
+    coding: int = CODING_ORDER0,
+    hist: np.ndarray | None = None,
+    mask: np.ndarray | None = None,
+):
+    """K1's inputs for a [B, S] u8 plane batch coded with host tables (see
+    :func:`encode_plane_batch` for ``hist``/``mask`` and the ctx16
+    histograms) -> (block symbols [nblocks, K, lanes], lens, encode table
+    tensor, freq)."""
+    b, s = plane.shape
+    lens = lens_tensor(b, s, chunk_len, plane.device, lanes)
     nblocks = lens.shape[0]
     if coding == CODING_CTX16:
-        syms = _to_block_symbols(plane >> 4, chunk_len, nblocks)
-        jhist = _hist_flat(ctx_indices_device(syms), CTX_NIDX).cpu().numpy()
+        syms = _to_block_symbols(plane >> 4, chunk_len, nblocks, lanes)
+        idx = ctx_indices_device(syms)
+        if lanes != BLOCK_LANES:
+            steps = torch.arange(chunk_len, device=plane.device)
+            idx = idx[steps[None, :, None] < lens[:, None, :]]
+        jhist = _hist_flat(idx, CTX_NIDX).cpu().numpy()
         freq = normalize_freqs_ctx(jhist, floor_mask=jhist > 0)
         fc = rans_cuda.ctx_table_arrays(freq)
     else:
+        if hist is None:
+            hist = _hist_flat(plane, 256).cpu().numpy()
+            mask = hist > 0
         freq = normalize_freqs(np.asarray(hist), ensure_all=True,
                                floor_mask=mask)
-        syms = _to_block_symbols(plane, chunk_len, nblocks)
+        syms = _to_block_symbols(plane, chunk_len, nblocks, lanes)
         fc = rans_cuda.table_arrays(freq)
-    fc = rans_cuda.u32_tensor(fc, plane.device)
-    return code_blocks(plane, syms, lens, fc, freq, coding)
+    return syms, lens, rans_cuda.u32_tensor(fc, plane.device), freq
 
 
-def decode_plane_batch(
-    stream: PlaneStream, device, name: str = "plane"
+def decode_blocks(
+    stream: PlaneStream, device, b0: int, b1: int
 ) -> torch.Tensor:
-    """Decode a PlaneStream -> [B, S] uint8 tensor on ``device``; raises
-    ValueError when the rANS integrity check fails and NotImplementedError
-    (naming the stream ``name``) for a narrow stream."""
-    b, s, k = stream.nframes, stream.plane_size, stream.chunk_len
-    if stream.coding == CODING_CONST:
-        return torch.full((b, s), stream.value, dtype=torch.uint8,
-                          device=device)
-    if stream.coding == CODING_RAW:
-        return torch.from_numpy(stream.raw_bytes.reshape(b, s).copy()).to(
-            device
-        )
-    if stream.lanes != BLOCK_LANES:
-        raise NotImplementedError(
-            f"{name} stream is a narrow stream ({stream.lanes} lanes); "
-            "only 1024-lane streams are decoded by fpv_tpu_torch so far"
-        )
+    """K2 on rANS blocks ``b0..b1`` (inclusive) of a coded stream -> their
+    flat u8 symbols [(b1-b0+1) * K * lanes] on ``device`` (ctx16 nibbles
+    moved back to the high nibble).  Only those blocks' states, counts and
+    payload words are uploaded.  Raises ValueError when the rANS integrity
+    check fails."""
+    b, s, k, lanes = (stream.nframes, stream.plane_size, stream.chunk_len,
+                      stream.lanes)
+    nseg = num_segments(k)
     ctx = stream.coding == CODING_CTX16
     counts = stream.block_counts.astype(np.int64)
-    starts = np.zeros(len(counts), np.int64)
-    starts[1:] = np.cumsum(counts)[:-1]
+    cum = np.zeros(len(counts) + 1, np.int64)
+    cum[1:] = np.cumsum(counts)
+    g0, g1 = b0 * nseg, (b1 + 1) * nseg
+    payload = np.ascontiguousarray(stream.payload[cum[g0] : cum[g1]],
+                                   np.uint16)
+    lens = chunk_lens(b, s, k, lanes).reshape(-1, lanes)[b0 : b1 + 1]
     table = (rans_cuda.ctx_fused_table_arrays(stream.freq) if ctx
              else rans_cuda.fused_table_arrays(stream.freq))
     syms, ok = rans_cuda.rans_decode(
-        torch.from_numpy(counts.astype(np.int32)).to(device),
-        torch.from_numpy(starts).to(device),
-        rans_cuda.u32_tensor(stream.states, device).reshape(-1, BLOCK_LANES),
-        lens_tensor(b, s, k, device),
+        torch.from_numpy(counts[g0:g1].astype(np.int32)).to(device),
+        torch.from_numpy(cum[g0:g1] - cum[g0]).to(device),
+        rans_cuda.u32_tensor(
+            stream.states[b0 * lanes : (b1 + 1) * lanes], device
+        ).reshape(-1, lanes),
+        torch.from_numpy(np.ascontiguousarray(lens)).to(device),
         rans_cuda.u32_tensor(table, device),
-        torch.from_numpy(
-            np.ascontiguousarray(stream.payload, np.uint16).view(np.int16)
-        ).to(device),
+        torch.from_numpy(payload.view(np.int16)).to(device),
         k,
         prob_bits=CTX_PROB_BITS if ctx else PROB_BITS,
         ctx_mode=ctx,
     )
     if not bool((ok == 1).all()):
         raise ValueError("rANS stream integrity check failed")
-    out = _from_block_symbols(syms, b, s)
-    return out << 4 if ctx else out
+    flat = syms.reshape(-1)
+    return flat << 4 if ctx else flat
+
+
+def decode_plane_range(
+    stream: PlaneStream, device, lo: int, hi: int
+) -> torch.Tensor:
+    """Symbols ``lo:hi`` of a plane batch's flat stream -> u8 [hi - lo] on
+    ``device``.  A coded stream decodes only the rANS blocks covering the
+    range (blocks are contiguous in the flat stream), so one frame of a
+    1024-lane batch costs at most ceil(S / (K * 1024)) + 1 blocks.  Raises
+    ValueError when the rANS integrity check fails."""
+    if stream.coding == CODING_CONST:
+        return torch.full((hi - lo,), stream.value, dtype=torch.uint8,
+                          device=device)
+    if stream.coding == CODING_RAW:
+        return torch.from_numpy(stream.raw_bytes[lo:hi].copy()).to(device)
+    span = stream.chunk_len * stream.lanes
+    b0 = lo // span
+    flat = decode_blocks(stream, device, b0, (hi - 1) // span)
+    return flat[lo - b0 * span : hi - b0 * span]
+
+
+def decode_plane_batch(stream: PlaneStream, device) -> torch.Tensor:
+    """Decode a PlaneStream -> [B, S] uint8 tensor on ``device``; raises
+    ValueError when the rANS integrity check fails."""
+    b, s = stream.nframes, stream.plane_size
+    return decode_plane_range(stream, device, 0, b * s).reshape(b, s)

@@ -8,6 +8,7 @@ planes are uint8, whose add/sub wrap mod 256 as the format needs.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -22,6 +23,30 @@ def validate_shift(shift: int, big_endian: bool) -> None:
             "big-endian shifts above 8 are not supported (the reference's "
             "rotate path shifts by a negative amount there)"
         )
+
+
+def validate_u8_config(shift: int, big_endian: bool) -> None:
+    """8-bit direct input is only decodable under shift=8 little-endian:
+    the container records no bit depth, so a uint8 frame rides the
+    shift==8 single-plane layout (Frame's uint8 ctor,
+    fusion_power_video.cc:453-465)."""
+    if shift != 8 or big_endian:
+        raise ValueError(
+            "uint8 frames require a shift=8 little-endian stream "
+            f"(got shift={shift}, big_endian={big_endian}); widen to "
+            "uint16 yourself for other configurations"
+        )
+
+
+def resolve_u8_shift(dtype, shift: int, big_endian: bool) -> int:
+    """The effective shift of a file-level encode: uint8 input promotes
+    shift 0 (the default) to 8; an explicit shift must already be 8."""
+    if np.dtype(dtype) != np.uint8:
+        return shift
+    if shift == 0:
+        shift = 8
+    validate_u8_config(shift, big_endian)
+    return shift
 
 
 def split_planes(img: torch.Tensor, shift: int = 0, big_endian: bool = False):

@@ -13,7 +13,9 @@ CUDA tensor it launches the kernel or raises.
 
 Tensors carry unsigned values in signed dtypes: u32 states and table
 entries as int32 (same bits), u16 payload words as int16.  Symbols are
-uint8 ``[nblocks, K, 1024]`` (step-major, lane = row-major [8, 128]).
+uint8 ``[nblocks, K, lanes]`` (step-major); ``lanes`` is 1024 (the device
+geometry, lane = row-major [8, 128]) or a narrow stream's power of two
+from LANES_MIN to 512.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from fpv_tpu_torch.ops.rans_layout import (
     CTX_ALPHA,
     CTX_PROB_BITS,
     CTX_PROB_SCALE,
+    LANES_MIN,
     PROB_BITS,
     RANS_L,
     SEG_LEN,
@@ -41,6 +44,14 @@ def u32_tensor(a: np.ndarray, device) -> torch.Tensor:
     """numpy u32 -> int32 tensor with the same bits."""
     a = np.ascontiguousarray(a, dtype=np.uint32)
     return torch.from_numpy(a.view(np.int32)).to(device)
+
+
+def _check_lanes(lanes: int) -> None:
+    if not LANES_MIN <= lanes <= BLOCK_LANES or lanes & (lanes - 1):
+        raise ValueError(
+            f"lanes must be a power of two in [{LANES_MIN}, {BLOCK_LANES}], "
+            f"got {lanes}"
+        )
 
 
 def _segments(chunk_len: int) -> tuple[int, int]:
@@ -110,7 +121,7 @@ def ctx_fused_table_arrays(freq_ctx: np.ndarray) -> np.ndarray:
 
 
 def _ctx_of(prev: torch.Tensor) -> torch.Tensor:
-    """ctx = a*2 + (al != ar) of [nblocks, 1024] previous-step symbols,
+    """ctx = a*2 + (al != ar) of [nblocks, lanes] previous-step symbols,
     neighbors wrapping within each block's lanes."""
     al = torch.roll(prev, 1, dims=1)
     ar = torch.roll(prev, -1, dims=1)
@@ -126,9 +137,9 @@ def rans_encode_ref(
 ):
     """Plain PyTorch K1: a vectorized loop over symbol steps (reverse).
 
-    ``syms`` u8 [nblocks, K, 1024] (nibbles in ctx mode, zero beyond each
-    lane's length), ``lens`` i32 [nblocks, 1024], ``fc`` i32 encode table.
-    Returns (states i32 [nblocks, 1024], counts i32 [nblocks*nseg],
+    ``syms`` u8 [nblocks, K, lanes] (nibbles in ctx mode, zero beyond each
+    lane's length), ``lens`` i32 [nblocks, lanes], ``fc`` i32 encode table.
+    Returns (states i32 [nblocks, lanes], counts i32 [nblocks*nseg],
     payload i16 [sum(counts)])."""
     nb, k, lanes = syms.shape
     kseg, nseg = _segments(k)
@@ -176,20 +187,21 @@ def rans_encode(
     kernels.check_cuda(fc, torch.int32, "fc")
     nb, k, lanes = syms.shape
     kseg, nseg = _segments(k)
-    if lanes != BLOCK_LANES or lens.shape != (nb, BLOCK_LANES):
-        raise ValueError("rans_encode takes 1024-lane blocks")
+    _check_lanes(lanes)
+    if lens.shape != (nb, lanes):
+        raise ValueError("lens must be [nblocks, lanes]")
     if fc.numel() != (512 if ctx_mode else 256):
         raise ValueError("encode table has the wrong size for the mode")
     dev = syms.device
-    states = torch.empty((nb, BLOCK_LANES), dtype=torch.int32, device=dev)
-    region = kseg * BLOCK_LANES
+    states = torch.empty((nb, lanes), dtype=torch.int32, device=dev)
+    region = kseg * lanes
     words = torch.empty((nb * nseg, region), dtype=torch.int16, device=dev)
     counts = torch.empty(nb * nseg, dtype=torch.int32, device=dev)
     kernels.launch(
         "rans_encode", "fpvt_rans_encode", dev,
-        syms.data_ptr(), lens.data_ptr(), fc.data_ptr(), fc.numel(), nb, k,
-        prob_bits, int(ctx_mode), states.data_ptr(), words.data_ptr(),
-        counts.data_ptr(),
+        syms.data_ptr(), lens.data_ptr(), fc.data_ptr(), fc.numel(), nb,
+        lanes, k, prob_bits, int(ctx_mode), states.data_ptr(),
+        words.data_ptr(), counts.data_ptr(),
     )
     # compact the worst-case (block, segment) regions into one tight stream
     valid = torch.arange(region, device=dev)[None, :] < counts[:, None]
@@ -215,10 +227,10 @@ def rans_decode_ref(
 
     ``counts`` i32 / ``starts`` i64 [nblocks*nseg] word count and payload
     offset of each (block, segment) group; ``states``/``lens`` i32
-    [nblocks, 1024]; ``table`` i32 [4096] fused decode entries;
-    ``payload`` i16 [T] words.  Returns (syms u8 [nblocks, K, 1024] — zero
+    [nblocks, lanes]; ``table`` i32 [4096] fused decode entries;
+    ``payload`` i16 [T] words.  Returns (syms u8 [nblocks, K, lanes] — zero
     beyond each lane's length, nibbles in ctx mode — and ok i32
-    [nblocks, 1024])."""
+    [nblocks, lanes])."""
     nb, lanes = states.shape
     k = chunk_len
     kseg, nseg = _segments(k)
@@ -291,21 +303,21 @@ def rans_decode(
     kernels.check_cuda(payload, torch.int16, "payload")
     nb, lanes = states.shape
     _kseg, nseg = _segments(chunk_len)
-    if lanes != BLOCK_LANES or lens.shape != (nb, BLOCK_LANES):
-        raise ValueError("rans_decode takes 1024-lane blocks")
+    _check_lanes(lanes)
+    if lens.shape != (nb, lanes):
+        raise ValueError("lens must be [nblocks, lanes]")
     if counts.numel() != nb * nseg or starts.numel() != nb * nseg:
         raise ValueError("one count and start per (block, segment) needed")
     if table.numel() != 1 << PROB_BITS:
         raise ValueError("fused decode table must have 4096 entries")
     dev = states.device
-    out = torch.empty((nb, chunk_len, BLOCK_LANES), dtype=torch.uint8,
-                      device=dev)
-    ok = torch.empty((nb, BLOCK_LANES), dtype=torch.int32, device=dev)
+    out = torch.empty((nb, chunk_len, lanes), dtype=torch.uint8, device=dev)
+    ok = torch.empty((nb, lanes), dtype=torch.int32, device=dev)
     kernels.launch(
         "rans_decode", "fpvt_rans_decode", dev,
         counts.data_ptr(), starts.data_ptr(), states.data_ptr(),
         lens.data_ptr(), table.data_ptr(), payload.data_ptr(),
-        payload.numel(), nb, chunk_len, prob_bits, int(ctx_mode),
+        payload.numel(), nb, lanes, chunk_len, prob_bits, int(ctx_mode),
         out.data_ptr(), ok.data_ptr(),
     )
     return out, ok

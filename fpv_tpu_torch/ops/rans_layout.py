@@ -68,8 +68,9 @@ CODING_CONST = 2
 # rANS stream would not be smaller
 CODING_RAW = 3
 
-# Narrow streams (fewer than 1024 lanes per block) are a per-stream wire
-# option; this package reads their lane field but codes 1024-lane streams.
+# Narrow streams (fewer than 1024 lanes per block, down to LANES_MIN) are a
+# per-stream wire option, written by the small-batch encoder policy
+# (entropy/plane_codec.narrow_geometry).
 LANES_MIN = 8
 
 

@@ -30,7 +30,7 @@ BUILD_DIR = CSRC.parent.parent / "build" / "fpv_tpu_torch"
 SOURCES = ("rans_encode.cu", "rans_decode.cu", "cg2d_decode.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 LAUNCHES = {"rans_encode": 0, "rans_decode": 0, "cg2d_decode": 0}
@@ -40,13 +40,14 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry points: name -> argtypes (every entry returns cudaError_t as int)
 _SIGNATURES = {
-    # syms, lens, fc, nidx, nblocks, chunk_len, prob_bits, ctx_mode,
+    # syms, lens, fc, nidx, nblocks, lanes, chunk_len, prob_bits, ctx_mode,
     # states, words, counts, stream
-    "fpvt_rans_encode": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    # counts, starts, states, lens, table, payload, total_words, nblocks,
-    # chunk_len, prob_bits, ctx_mode, out, ok, stream
-    "fpvt_rans_decode": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P,
+    "fpvt_rans_encode": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                          _P),
+    # counts, starts, states, lens, table, payload, total_words, nblocks,
+    # lanes, chunk_len, prob_bits, ctx_mode, out, ok, stream
+    "fpvt_rans_decode": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P,
+                         _P, _P),
     # res, out, b, h, w, stream
     "fpvt_cg2d_decode": (_P, _P, _I, _I, _I, _P),
 }
@@ -75,22 +76,33 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libfpvt_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands at once; raise with the output of the first that
+    fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{out}")
+
+
 def build() -> pathlib.Path:
-    """Compile the kernels (if this exact source set is not built yet)."""
+    """Compile the kernels (if this exact source set is not built yet): one
+    nvcc per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        nvcc = _nvcc()
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
+                  for s, o in zip(SOURCES, objs)])
+        lib = os.path.join(tmp, out.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
     return out
 
 

@@ -31,15 +31,15 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(n, k, ctx, seed):
+def _case(n, k, ctx, seed, lanes=LANES):
     """Skewed block symbols, lane lengths and the encode/decode tables."""
     rng = np.random.default_rng(seed)
     flat = np.minimum(rng.geometric(0.3, n) - 1, 15 if ctx else 255)
-    lens = chunk_lens(1, n, k)
-    nb = len(lens) // LANES
-    syms = np.zeros(nb * k * LANES, np.uint8)
+    lens = chunk_lens(1, n, k, lanes)
+    nb = len(lens) // lanes
+    syms = np.zeros(nb * k * lanes, np.uint8)
     syms[:n] = flat
-    syms = torch.from_numpy(syms.reshape(nb, k, LANES))
+    syms = torch.from_numpy(syms.reshape(nb, k, lanes))
     if ctx:
         idx = ctx_indices_device(syms).reshape(-1)
         jhist = torch.bincount(idx, minlength=512).numpy()
@@ -49,22 +49,30 @@ def _case(n, k, ctx, seed):
         hist = np.bincount(syms.numpy().reshape(-1), minlength=256)
         freq = normalize_freqs(hist, ensure_all=True)
         fc, table = tc.table_arrays(freq), tc.fused_table_arrays(freq)
-    lens_t = torch.from_numpy(lens.reshape(nb, LANES))
+    lens_t = torch.from_numpy(lens.reshape(nb, lanes))
     return syms, lens_t, tc.u32_tensor(fc, "cpu"), tc.u32_tensor(table, "cpu")
 
 
 CASES = [
-    pytest.param(2 * 256 * LANES + 700, 256, False, id="order0-k256-pad"),
-    pytest.param(1024 * LANES + 300_001, 1024, False, id="order0-k1024"),
-    pytest.param(256 * LANES + 513, 256, True, id="ctx16-k256-pad"),
-    pytest.param(1024 * LANES + 123_457, 1024, True, id="ctx16-k1024"),
+    pytest.param(2 * 256 * LANES + 700, 256, False, LANES,
+                 id="order0-k256-pad"),
+    pytest.param(1024 * LANES + 300_001, 1024, False, LANES,
+                 id="order0-k1024"),
+    pytest.param(256 * LANES + 513, 256, True, LANES, id="ctx16-k256-pad"),
+    pytest.param(1024 * LANES + 123_457, 1024, True, LANES, id="ctx16-k1024"),
+    # narrow streams: one partial warp (8), one warp (32), several warps
+    pytest.param(6144, 1024, True, 8, id="lanes8-ctx16-k1024"),
+    pytest.param(2 * 16 * 8 + 5, 16, False, 8, id="lanes8-order0-k16-pad"),
+    pytest.param(2048 * 32 - 77, 2048, False, 32, id="lanes32-order0-k2048"),
+    pytest.param(512 * 128 + 100, 512, True, 128, id="lanes128-ctx16-pad"),
+    pytest.param(3 * 64 * 512 - 9, 64, True, 512, id="lanes512-ctx16-k64"),
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,k,ctx", CASES)
-def test_rans_kernels_match_plain(cuda, n, k, ctx):
-    syms, lens, fc, table = _case(n, k, ctx, seed=n % 97)
+@pytest.mark.parametrize("n,k,ctx,lanes", CASES)
+def test_rans_kernels_match_plain(cuda, n, k, ctx, lanes):
+    syms, lens, fc, table = _case(n, k, ctx, seed=n % 97, lanes=lanes)
     pb = CTX_PROB_BITS if ctx else 12
     ref = tc.rans_encode_ref(syms, lens, fc, pb, ctx)
     got = tc.rans_encode(syms.to(cuda), lens.to(cuda), fc.to(cuda), pb, ctx)
@@ -116,3 +124,24 @@ def test_file_bytes_same_on_cuda_and_cpu(cuda, shift, bits):
                                                      **kw)
     back = fpv_tpu_torch.decode_file_fpvt(on_card, device=cuda)
     np.testing.assert_array_equal(back, frames << shift)
+
+
+@pytest.mark.cuda
+def test_decode_frame_on_card_equals_full_decode(cuda):
+    """Random access on the card: a wide file (frames spanning several
+    rANS blocks, prev chains) decoded frame by frame equals its whole
+    decode, and launches K2 on sub-ranges of blocks."""
+    from fpv_tpu_torch.utils import kernels
+
+    frames = testdata.plasma_frames(10, 128, 160, bits=12, seed=4)
+    wri = fpv_tpu_torch.FpvtWriter(160, 128, 4, False, 9, 4, device=cuda,
+                                   delta_is_frame0=True, narrow=False)
+    data = b"".join([wri.init(frames[0]), wri.encode_batch(frames[1:]),
+                     wri.finish()])
+    want = fpv_tpu_torch.decode_file_fpvt(data, device=cuda)
+    np.testing.assert_array_equal(want, frames << 4)
+    r = fpv_tpu_torch.FpvtReader(data, device=cuda)
+    kernels.reset_launches()
+    for i in (9, 1, 5, 0, 8):
+        np.testing.assert_array_equal(r.decode_frame(i), want[i])
+    assert kernels.LAUNCHES["rans_decode"] > 0

@@ -1,11 +1,14 @@
-"""The FPVT slice as a whole: fpv_tpu_torch against the JAX package.
+"""The FPVT device geometry as a whole: fpv_tpu_torch against the JAX
+package.
 
 The JAX reference files are written on the device (pallas) engine in
 interpret mode with narrow streams off (FPV_TPU_RANS_ENGINE=pallas,
-FPV_TPU_NARROW_MAX=0), which is the geometry the port always writes; the
-port's bytes must equal them exactly, the port must decode them
-pixel-exact, and the JAX reader must decode the port's files.  Each JAX
-file is built once per module (interpret-mode kernels cost seconds).
+FPV_TPU_NARROW_MAX=0); the port writes the same geometry through
+``FpvtWriter(..., narrow=False)``.  The port's bytes must equal them
+exactly, the port must decode them pixel-exact, and the JAX reader must
+decode the port's files.  Each JAX file is built once per module
+(interpret-mode kernels cost seconds).  The default (narrow-policy) file
+API is held to the JAX package in test_torch_file_api.py.
 """
 
 import struct
@@ -47,6 +50,21 @@ CASES = {
 ENC = dict(frames_per_batch=3, chunk_log2=8)
 
 
+def _port_wide(frames, shift, frames_per_batch, chunk_log2):
+    """encode_file_fpvt's layout (frame 0 is the delta section) through a
+    writer with the narrow policy off: every batch takes the fused
+    1024-lane route."""
+    n, h, w = frames.shape
+    wri = fpv_tpu_torch.FpvtWriter(
+        w, h, shift, False, frames_per_batch, chunk_log2, device="cpu",
+        delta_is_frame0=True, narrow=False,
+    )
+    parts = [wri.init(frames[0])]
+    for s in range(1, n, frames_per_batch):
+        parts.append(wri.encode_batch(frames[s : s + frames_per_batch]))
+    return b"".join(parts + [wri.finish()])
+
+
 @pytest.fixture(scope="module")
 def files():
     """name -> (frames, shift, JAX bytes, port bytes)."""
@@ -57,9 +75,7 @@ def files():
         for name, (make, shift, _codings) in CASES.items():
             frames = make()
             jax_bytes = jcodec.encode_file_fpvt(frames, shift=shift, **ENC)
-            port = fpv_tpu_torch.encode_file_fpvt(
-                frames, shift=shift, device="cpu", **ENC
-            )
+            port = _port_wide(frames, shift, **ENC)
             out[name] = (frames, shift, jax_bytes, port)
     return out
 
@@ -138,11 +154,15 @@ def test_bad_preview_chunk_len_rejected(files, chunk_len):
         fpv_tpu_torch.decode_file_fpvt(bytes(data), device="cpu")
 
 
-def test_narrow_stream_raises_not_implemented():
+def test_narrow_stream_decodes():
     """The golden fixtures are small files whose streams are narrow."""
     data = (REPO / "tests" / "golden" / "v6_drift.fpvt").read_bytes()
-    with pytest.raises(NotImplementedError, match="narrow"):
-        fpv_tpu_torch.decode_file_fpvt(data, device="cpu")
+    off, _n = tfpvt.parse_footer(data)[0]
+    assert tfpvt.parse_batch_section(data, off).high.lanes < 1024
+    with np.load(REPO / "tests" / "golden" / "inputs.npz") as z:
+        want = z["drift"] << 4
+    got = fpv_tpu_torch.decode_file_fpvt(data, device="cpu")
+    np.testing.assert_array_equal(got, want)
 
 
 def test_import_leaves_out_jax_and_fpv_tpu():

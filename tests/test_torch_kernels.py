@@ -30,23 +30,23 @@ from fpv_tpu_torch.ops.rans_layout import (
 LANES = BLOCK_LANES
 
 
-def _block_syms(n: int, k: int, seed: int, ctx: bool):
-    """A skewed symbol stream of n symbols in the [nblocks, K, 1024] block
+def _block_syms(n: int, k: int, seed: int, ctx: bool, lanes: int = LANES):
+    """A skewed symbol stream of n symbols in the [nblocks, K, lanes] block
     layout (zero-padded) plus its lane lengths."""
     rng = np.random.default_rng(seed)
     hi = 16 if ctx else 256
     flat = np.minimum(rng.geometric(0.3, n) - 1, hi - 1).astype(np.uint8)
-    lens = chunk_lens(1, n, k)
-    nb = len(lens) // LANES
-    pad = np.zeros(nb * k * LANES, np.uint8)
+    lens = chunk_lens(1, n, k, lanes)
+    nb = len(lens) // lanes
+    pad = np.zeros(nb * k * lanes, np.uint8)
     pad[:n] = flat
-    return pad.reshape(nb, k, LANES), lens
+    return pad.reshape(nb, k, lanes), lens
 
 
 def _oracle_layout(syms: np.ndarray) -> np.ndarray:
-    """[nb, K, 1024] block layout -> rans_numpy's [C_pad, K] lane rows."""
-    nb, k, _ = syms.shape
-    return syms.transpose(0, 2, 1).reshape(nb * LANES, k)
+    """[nb, K, lanes] block layout -> rans_numpy's [C_pad, K] lane rows."""
+    nb, k, lanes = syms.shape
+    return syms.transpose(0, 2, 1).reshape(nb * lanes, k)
 
 
 def _starts(counts: np.ndarray) -> np.ndarray:
@@ -58,30 +58,32 @@ def _starts(counts: np.ndarray) -> np.ndarray:
 def _oracle_encode(syms, lens, ctx):
     """rans_numpy encode + the tables both coders use."""
     rows = _oracle_layout(syms)
+    lanes = syms.shape[2]
     if ctx:
-        idx = rn.encode_ctx_indices(rows.astype(np.int32), lens)
+        idx = rn.encode_ctx_indices(rows.astype(np.int32), lens, lanes)
         jhist = np.bincount(idx.reshape(-1), minlength=512)
         freq = normalize_freqs_ctx(jhist, floor_mask=jhist > 0)
         _f, cum, _s = rn.ctx_tables(freq)
         enc = rn.encode_blocks(idx, lens, freq, prob_bits=CTX_PROB_BITS,
-                               cum=cum)
+                               cum=cum, lanes=lanes)
         return freq, enc, tc.ctx_table_arrays(freq)
     hist = np.bincount(rows.reshape(-1), minlength=256)
     freq = normalize_freqs(hist, ensure_all=True)
-    return freq, rn.encode_blocks(rows, lens, freq), tc.table_arrays(freq)
+    return (freq, rn.encode_blocks(rows, lens, freq, lanes=lanes),
+            tc.table_arrays(freq))
 
 
 def _torch_encode(syms, lens, fc, ctx):
     return tc.rans_encode_ref(
         torch.from_numpy(syms),
-        torch.from_numpy(lens.reshape(-1, LANES)),
+        torch.from_numpy(lens.reshape(-1, syms.shape[2])),
         torch.from_numpy(fc.astype(np.uint32).view(np.int32)),
         prob_bits=CTX_PROB_BITS if ctx else 12,
         ctx_mode=ctx,
     )
 
 
-def _torch_decode(states, counts, payload, lens, freq, k, ctx):
+def _torch_decode(states, counts, payload, lens, freq, k, ctx, lanes=LANES):
     table = (tc.ctx_fused_table_arrays(freq) if ctx
              else tc.fused_table_arrays(freq))
     counts = np.asarray(counts, np.int64)
@@ -89,8 +91,8 @@ def _torch_decode(states, counts, payload, lens, freq, k, ctx):
         torch.from_numpy(counts.astype(np.int32)),
         torch.from_numpy(_starts(counts)),
         torch.from_numpy(np.asarray(states, np.uint32).view(np.int32)
-                         .reshape(-1, LANES)),
-        torch.from_numpy(lens.reshape(-1, LANES)),
+                         .reshape(-1, lanes)),
+        torch.from_numpy(lens.reshape(-1, lanes)),
         torch.from_numpy(table.view(np.int32)),
         torch.from_numpy(np.asarray(payload, np.uint16).view(np.int16)),
         k,
@@ -102,36 +104,50 @@ def _torch_decode(states, counts, payload, lens, freq, k, ctx):
 
 # chunk 256: one segment; chunk 1024: two segments (state carry).  The
 # k256 cases end in a block with zero-length pad lanes, the k1024 cases in
-# a short block whose last segment is partly empty.
+# a short block whose last segment is partly empty.  The narrow cases
+# (lanes 8-512, the JAX package's host-engine geometry) run chunks from 16
+# to 2048 steps (four segments), with and without pad lanes.
 CASES = [
-    pytest.param(256, 2 * 256 * LANES + 700, False, id="order0-k256-pad"),
-    pytest.param(1024, 1024 * LANES + 300_001, False, id="order0-k1024"),
-    pytest.param(256, 256 * LANES + 513, True, id="ctx16-k256-pad"),
-    pytest.param(1024, 1024 * LANES + 123_457, True, id="ctx16-k1024"),
+    pytest.param(256, 2 * 256 * LANES + 700, False, LANES, True,
+                 id="order0-k256-pad"),
+    pytest.param(1024, 1024 * LANES + 300_001, False, LANES, False,
+                 id="order0-k1024"),
+    pytest.param(256, 256 * LANES + 513, True, LANES, True,
+                 id="ctx16-k256-pad"),
+    pytest.param(1024, 1024 * LANES + 123_457, True, LANES, False,
+                 id="ctx16-k1024"),
+    pytest.param(16, 2 * 16 * 8 + 5, False, 8, True, id="lanes8-order0-k16-pad"),
+    pytest.param(1024, 6144, True, 8, False, id="lanes8-ctx16-k1024"),
+    pytest.param(2048, 2048 * 32 - 77, True, 32, False,
+                 id="lanes32-ctx16-k2048"),
+    pytest.param(512, 512 * 128 + 100, True, 128, True,
+                 id="lanes128-ctx16-k512-pad"),
+    pytest.param(64, 3 * 64 * 512 - 9, False, 512, False,
+                 id="lanes512-order0-k64"),
 ]
 
 
-@pytest.mark.parametrize("k,n,ctx", CASES)
-def test_plain_rans_encode_matches_numpy_oracle(k, n, ctx):
-    syms, lens = _block_syms(n, k, seed=k + ctx, ctx=ctx)
-    assert (lens == 0).any() == (k == 256)
+@pytest.mark.parametrize("k,n,ctx,lanes,pad", CASES)
+def test_plain_rans_encode_matches_numpy_oracle(k, n, ctx, lanes, pad):
+    syms, lens = _block_syms(n, k, seed=k + ctx, ctx=ctx, lanes=lanes)
+    assert (lens == 0).any() == pad
     _freq, (st, cnt, pay), fc = _oracle_encode(syms, lens, ctx)
     states, counts, payload = _torch_encode(syms, lens, fc, ctx)
-    assert counts.numel() == len(lens) // LANES * num_segments(k)
+    assert counts.numel() == len(lens) // lanes * num_segments(k)
     np.testing.assert_array_equal(states.numpy().view(np.uint32).reshape(-1),
                                   st)
     np.testing.assert_array_equal(counts.numpy(), cnt)
     np.testing.assert_array_equal(payload.numpy().view(np.uint16), pay)
 
 
-@pytest.mark.parametrize("k,n,ctx", CASES)
-def test_plain_rans_decode_matches_numpy_oracle(k, n, ctx):
-    syms, lens = _block_syms(n, k, seed=k + ctx + 7, ctx=ctx)
+@pytest.mark.parametrize("k,n,ctx,lanes,pad", CASES)
+def test_plain_rans_decode_matches_numpy_oracle(k, n, ctx, lanes, pad):
+    syms, lens = _block_syms(n, k, seed=k + ctx + 7, ctx=ctx, lanes=lanes)
     freq, (st, cnt, pay), _fc = _oracle_encode(syms, lens, ctx)
     oracle = rn.decode_blocks_ctx if ctx else rn.decode_blocks
-    ref_syms, ref_ok = oracle(st, cnt, pay, lens, freq, k)
+    ref_syms, ref_ok = oracle(st, cnt, pay, lens, freq, k, lanes=lanes)
     assert ref_ok.all()
-    got, ok = _torch_decode(st, cnt, pay, lens, freq, k, ctx)
+    got, ok = _torch_decode(st, cnt, pay, lens, freq, k, ctx, lanes)
     np.testing.assert_array_equal(_oracle_layout(got), ref_syms)
     np.testing.assert_array_equal(got, syms)
     np.testing.assert_array_equal(ok.reshape(-1).astype(bool), ref_ok)
@@ -139,8 +155,8 @@ def test_plain_rans_decode_matches_numpy_oracle(k, n, ctx):
     # corrupted payload: the ok flags must report it exactly as the oracle
     bad = pay.copy()
     bad[len(bad) // 3] ^= 0x5A5A
-    ref_syms, ref_ok = oracle(st, cnt, bad, lens, freq, k)
-    got, ok = _torch_decode(st, cnt, bad, lens, freq, k, ctx)
+    ref_syms, ref_ok = oracle(st, cnt, bad, lens, freq, k, lanes=lanes)
+    got, ok = _torch_decode(st, cnt, bad, lens, freq, k, ctx, lanes)
     assert not ref_ok.all()
     np.testing.assert_array_equal(ok.reshape(-1).astype(bool), ref_ok)
     np.testing.assert_array_equal(_oracle_layout(got), ref_syms)

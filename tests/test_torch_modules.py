@@ -236,3 +236,96 @@ def test_encode_model_step_bench_size(bench_windows, start):
         else:
             _eq(got[name], r, name)
     _eq(got["spatial"], np.full(len(imgs), SPATIAL_UP))
+
+
+def test_narrow_geometry():
+    for n in (1, 15, 16, 17, 1000, 8 * 1024, 8 * 32768, 8 * 32768 + 1,
+              3 * 1024 * 1024, tpc.NARROW_MAX_SYMS):
+        assert tpc.narrow_geometry(n) == jpc._narrow_geometry(n), n
+    assert tpc.NARROW_MAX_SYMS == jpc.NARROW_MAX_SYMS
+    assert tpc.NARROW_MAX_K == jpc.NARROW_MAX_K
+
+
+def test_u8_config_helpers():
+    for shift, be in ((8, False), (0, False), (4, False), (8, True)):
+        for dtype in (np.uint8, np.uint16):
+            try:
+                want = jplanes.resolve_u8_shift(dtype, shift, be)
+            except ValueError:
+                with pytest.raises(ValueError, match="shift=8"):
+                    tplanes.resolve_u8_shift(dtype, shift, be)
+            else:
+                assert tplanes.resolve_u8_shift(dtype, shift, be) == want
+        if shift == 8 and not be:
+            tplanes.validate_u8_config(shift, be)
+        else:
+            with pytest.raises(ValueError, match="shift=8"):
+                tplanes.validate_u8_config(shift, be)
+
+
+def _stream_fields_equal(got, ref):
+    for f in ("nframes", "plane_size", "chunk_len", "coding", "lanes"):
+        assert getattr(got, f) == getattr(ref, f), f
+    for f in ("freq", "states", "block_counts", "payload"):
+        _eq(getattr(got, f), getattr(ref, f), f)
+
+
+def _resid_plane(shape, seed, width):
+    """Mod-256 residual-like bytes: a narrow Laplacian around 0."""
+    rng = np.random.default_rng(seed)
+    return (rng.laplace(0, width, shape).round().astype(np.int64) % 256
+            ).astype(np.uint8)
+
+
+# (name, plane, coding, hist-or-None, lanes mode): small planes, where
+# "auto" picks narrow streams, const and raw streams, and "wide"
+PLANE_CASES = {
+    "order0-narrow": (lambda: _resid_plane((3, 40, 56), 1, 3), 0, True, "auto"),
+    "order0-exact-hist": (lambda: _resid_plane((2, 65, 91), 2, 2), 0, False,
+                          "auto"),
+    "ctx16-narrow": (lambda: _resid_plane((3, 40, 56), 3, 20) & 0xF0, 1, False,
+                     "auto"),
+    "const": (lambda: np.full((2, 24, 24), 7, np.uint8), 0, True, "auto"),
+    "noise-raw": (lambda: _planes(seed=4, shape=(2, 48, 48)), 0, True, "auto"),
+    "order0-wide": (lambda: _resid_plane((4, 128, 128), 5, 4), 0, True,
+                    "wide"),
+}
+
+
+@pytest.mark.parametrize("name", list(PLANE_CASES))
+def test_encode_plane_batch_policy_matches_jax(name):
+    """The narrow policy and narrow coding against the JAX package's default
+    (host) engine: every PlaneStream field, including the ctx16 tables,
+    which the narrow route takes from an exact histogram of the coded
+    positions."""
+    make, coding, with_hist, lanes = PLANE_CASES[name]
+    plane = make()
+    b = plane.shape[0]
+    flat = plane.reshape(b, -1)
+    hist = np.bincount(flat[:, ::3].reshape(-1), minlength=256) if with_hist \
+        else None
+    mask = (np.bincount(flat.reshape(-1), minlength=256) > 0) if with_hist \
+        else None
+    ref = jpc.encode_plane_batch(flat, hist, 256, engine="numpy",
+                                 coding=coding, mask=mask, lanes=lanes)
+    got = tpc.encode_plane_batch(_t(flat), hist, 256, coding=coding,
+                                 mask=mask, lanes=lanes)
+    _stream_fields_equal(got, ref)
+    want = {"const": 2, "noise-raw": 3}.get(name, coding)
+    assert got.coding == want
+    if name.endswith("narrow"):
+        assert got.lanes < 1024
+    np.testing.assert_array_equal(
+        tpc.decode_plane_batch(got, "cpu").numpy(), flat
+    )
+
+
+def test_encode_plane_batch_wide_ctx16_matches_jax_device_route(monkeypatch):
+    """1024-lane ctx16 streams take their table from the full block array
+    (padding included), as the JAX device (pallas) route does."""
+    monkeypatch.setenv("FPV_TPU_RANS_ENGINE", "pallas")
+    plane = (_resid_plane((1, 120, 500), 6, 20) & 0xF0).reshape(1, -1)
+    ref = jpc.encode_plane_batch(plane, None, 64, coding=1, lanes="wide")
+    got = tpc.encode_plane_batch(_t(plane), None, 64, coding=1, lanes="wide")
+    assert got.lanes == 1024 and got.coding == 1
+    _stream_fields_equal(got, ref)
