@@ -5,18 +5,24 @@
 
 1. Checks for a CUDA device and prints the card's name and power limit.
 2. Builds the CUDA kernels from ``fpv_tpu_torch/csrc`` (nvcc, first use).
-3. Holds each kernel (K1 rANS encode, K2 rANS decode, K3 CG2D inverse)
-   against its plain PyTorch version on the card at the main path's shapes,
-   exactly, and times both (CUDA events, median); K1/K2 also at the narrow
-   lane counts the small-file paths use (8 lanes x 1024 steps, the golden
-   fixtures' batch planes; 128 lanes x 32768 steps, the narrow maximum).
+3. Holds each kernel (K1a rANS state chain, K1b rANS placement, K2 rANS
+   decode, K3 CG2D inverse) against its plain PyTorch version on the card
+   at the main path's shapes, exactly, and times both (CUDA events,
+   median): per plane, and as the main path launches them, one batch's
+   planes in one grouped launch, with the bound (the function's bytes at
+   3.35 TB/s; K1's split between its two passes) and the share of it
+   reached; K3 also on a batch of
+   previews.  K1/K2 also at the narrow lane counts the small-file paths
+   use (8 lanes x 1024 steps, the golden fixtures' batch planes; 128
+   lanes x 32768 steps, the narrow maximum).
 4. Drives the main path: ``encode_file_fpvt`` -> FPVT bytes ->
    ``decode_file_fpvt`` on the bench corpus (128 x 1024 x 1024 12-bit
    plasma frames, shift 4, 32 frames per batch) on the card, checks the
-   round trip is lossless and that every kernel was launched by it, and
-   checks that a small (narrow-stream) file's bytes are the same on the
-   card and on the CPU (where the plain versions run; the CPU tests hold
-   those bytes to the JAX package's).
+   round trip is lossless, that every kernel was launched by it, and that
+   K1a/K1b ran once per batch and K2 once per batch and delta section;
+   and checks that a small (narrow-stream) file's bytes are the same on
+   the card and on the CPU (where the plain versions run; the CPU tests
+   hold those bytes to the JAX package's).
 5. Decodes the golden fixtures (tests/golden) on the card pixel-exact and
    re-encodes their inputs to the pinned SHA-256s.
 6. Round-trips a 5 x 1024 x 1024 file, whose 4 Mi-symbol body is the
@@ -75,7 +81,12 @@ from fpv_tpu_torch.format.fpvt import F_SPATIAL_SHIFT
 from fpv_tpu_torch.ops import predict, rans_cuda
 from fpv_tpu_torch.ops.planes import split_planes
 from fpv_tpu_torch.ops.preview import generate_preview
-from fpv_tpu_torch.ops.rans_layout import CTX_PROB_BITS
+from fpv_tpu_torch.ops.rans_layout import (
+    CODING_CTX16,
+    CODING_ORDER0,
+    CODING_RAW,
+    CTX_PROB_BITS,
+)
 from fpv_tpu_torch.utils import kernels, testdata
 
 N_FRAMES, H, W, BITS, SHIFT, FPB, CHUNK_LOG2 = 128, 1024, 1024, 12, 4, 32, 12
@@ -177,80 +188,176 @@ def narrow_cases(dev):
     return cases
 
 
+HBM_BYTES_PER_MS = 3.35e9  # H100 SXM: 3.35 TB/s
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def timed_once(fn):
+    """(result, synchronized wall ms) of one call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
 def check_rans(cases, dev, results, plain_reps=2):
-    """K1 and K2 against their plain versions on each case; exact equality,
-    K2 inverting K1, and K2's ok flags catching a flipped payload word.
-    ``plain_reps`` 0 runs each plain version once and records that one
-    run's wall time (synchronized) as its time."""
+    """Per plane: K1a, K1b and K2 against their plain versions, exactly;
+    K2 inverting K1; K2's ok flags catching a flipped payload word and
+    agreeing with the plain version on a corrupted count.  Times the
+    single-plane calls (K1 = K1a + K1b, comparable with the one-pass K1
+    before the split) and each pass.  ``plain_reps`` 0 runs each plain version once and records that
+    one run's wall time (synchronized).  Returns the plain results, which
+    the grouped check reuses."""
+    refs = []
     for name, syms, lens, fc, k, pb, ctx, table in cases:
-        def enc():
-            return rans_cuda.rans_encode(syms, lens, fc, pb, ctx)
-
-        def enc_ref():
-            return rans_cuda.rans_encode_ref(syms, lens, fc, pb, ctx)
-
-        got = enc()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ref = enc_ref()
-        torch.cuda.synchronize()
-        enc_plain_once = (time.perf_counter() - t0) * 1e3
-        err = max_err(got, ref)
-        states, counts, payload = got
+        plane = rans_cuda.EncodePlane(syms, lens, fc, pb, ctx)
+        chain = rans_cuda.rans_encode_chain([plane])[0]
+        chain_ref, chain_plain_once = timed_once(
+            lambda: rans_cuda.rans_encode_chain_ref(*plane))
+        err = max_err(chain, chain_ref)
+        place = rans_cuda.rans_encode_place([chain[1:]])[0]
+        place_ref, place_plain_once = timed_once(
+            lambda: rans_cuda.rans_place_ref(*chain_ref[1:3]))
+        err = max(err, max_err((place,), (place_ref,)))
+        states, counts, payload = rans_cuda.rans_encode_grouped([plane])[0]
+        enc_ref = (chain_ref[0], chain_ref[3], place_ref)
+        err = max(err, max_err((states, counts, payload), enc_ref))
         starts = torch.cumsum(counts.to(torch.int64), 0) - counts
-        dec_args = (counts, starts, states, lens,
-                    rans_cuda.u32_tensor(table, dev), payload)
-
-        def dec():
-            return rans_cuda.rans_decode(*dec_args, k, pb, ctx)
-
-        def dec_ref():
-            return rans_cuda.rans_decode_ref(*dec_args, k, pb, ctx)
-
-        d_got = dec()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        d_ref = dec_ref()
-        torch.cuda.synchronize()
-        dec_plain_once = (time.perf_counter() - t0) * 1e3
+        # the payload laid out as the reader uploads it (aligned, padded)
+        staged = rans_cuda.staged_payload(payload)
+        dec_plane = rans_cuda.DecodePlane(
+            counts, starts, states, lens, rans_cuda.u32_tensor(table, dev),
+            staged, k, pb, ctx)
+        d_got = rans_cuda.rans_decode_grouped([dec_plane])[0]
+        d_ref, dec_plain_once = timed_once(
+            lambda: rans_cuda.rans_decode_ref(*dec_plane))
         d_err = max_err(d_got, d_ref)
         if not bool((d_got[1] == 1).all()):
             raise AssertionError(f"K2 ok flags not all set on {name}")
         if not torch.equal(d_got[0], syms):
             raise AssertionError(f"K2 did not invert K1 on {name}")
-        bad = payload.clone()
+        bad = rans_cuda.staged_payload(staged.clone())
         bad[bad.numel() // 2] ^= 0x0100
-        b_args = dec_args[:5] + (bad,)
-        b_got = rans_cuda.rans_decode(*b_args, k, pb, ctx)
-        b_ref = rans_cuda.rans_decode_ref(*b_args, k, pb, ctx)
-        d_err = max(d_err, max_err(b_got, b_ref))
-        if bool((b_got[1] == 1).all()):
-            raise AssertionError(f"K2 missed a flipped word on {name}")
+        bad_count = counts.clone()
+        bad_count[bad_count.numel() // 2] += 1
+        for corrupt, must_fail in ((dec_plane._replace(payload=bad), True),
+                                   (dec_plane._replace(counts=bad_count),
+                                    False)):
+            b_got = rans_cuda.rans_decode_grouped([corrupt])[0]
+            b_ref = rans_cuda.rans_decode_ref(*corrupt)
+            d_err = max(d_err, max_err(b_got, b_ref))
+            if must_fail and bool((b_got[1] == 1).all()):
+                raise AssertionError(f"K2 missed a flipped word on {name}")
         if err or d_err:
             raise AssertionError(f"kernel != plain on {name}: {err} {d_err}")
+
+        def plain(fn, once):
+            return cuda_ms(fn, plain_reps) if plain_reps else once
+
         row = dict(
             case=name, blocks=int(syms.shape[0]), lanes=int(syms.shape[2]),
-            chunk_len=k, enc_ms=cuda_ms(enc, 5),
-            enc_plain_ms=(cuda_ms(enc_ref, plain_reps) if plain_reps
-                          else enc_plain_once),
-            dec_ms=cuda_ms(dec, 5),
-            dec_plain_ms=(cuda_ms(dec_ref, plain_reps) if plain_reps
-                          else dec_plain_once),
+            chunk_len=k,
+            enc_ms=cuda_ms(lambda: rans_cuda.rans_encode_grouped([plane]), 5),
+            chain_ms=cuda_ms(lambda: rans_cuda.rans_encode_chain([plane]), 5),
+            place_ms=cuda_ms(
+                lambda: rans_cuda.rans_encode_place([chain[1:]]), 5),
+            chain_plain_ms=plain(
+                lambda: rans_cuda.rans_encode_chain_ref(*plane),
+                chain_plain_once),
+            place_plain_ms=plain(
+                lambda: rans_cuda.rans_place_ref(*chain_ref[1:3]),
+                place_plain_once),
+            dec_ms=cuda_ms(lambda: rans_cuda.rans_decode_grouped([dec_plane]),
+                           5),
+            dec_plain_ms=plain(lambda: rans_cuda.rans_decode_ref(*dec_plane),
+                               dec_plain_once),
             plain_timing="median of 2" if plain_reps else "one run",
             max_abs_err=max(err, d_err))
         print("rans", json.dumps(row), flush=True)
         results.append(row)
+        refs.append(dict(chain=chain_ref, place=place_ref, dec=dec_plane,
+                         dec_ref=d_ref, row=row))
+    return refs
 
 
-def check_cg2d(high: torch.Tensor, dev, results):
-    """K3 against its plain version on a batch of real frames and on a
-    tall frame."""
+def check_rans_grouped(cases, refs, enc_idx, dec_idx) -> dict:
+    """The main path's grouped launches on one batch: K1a and K1b on the
+    planes ``enc_idx`` of ``cases`` together (high, ctx16 low, preview),
+    K2 on ``dec_idx`` together (high and low), against the per-plane plain
+    results of :func:`check_rans`; CUDA-event times, the plain versions'
+    summed per-plane times, and the bounds.  A bound is the bytes the
+    function must move (every input read once, every output written once)
+    at 3.35 TB/s; integer work has no peak rate in the card's table, so
+    bytes bound.  K1 is one function (symbols, lens and tables in; states,
+    counts and payload out) whose two passes split its bytes: K1a's share
+    is the inputs, states and counts it reads and writes, K1b's the
+    payload it writes.  The words and ballots that K1a hands K1b are the
+    split's own traffic, not the function's: their bytes are reported
+    beside the bound (``*_traffic_bytes``), not in it."""
+    planes = [rans_cuda.EncodePlane(*(cases[i][j] for j in (1, 2, 3, 5, 6)))
+              for i in enc_idx]
+    chains = rans_cuda.rans_encode_chain(planes)
+    places = rans_cuda.rans_encode_place([c[1:] for c in chains])
+    err = max(max(max_err(c, refs[i]["chain"]),
+                  max_err((p,), (refs[i]["place"],)))
+              for c, p, i in zip(chains, places, enc_idx))
+    dec = [refs[i]["dec"] for i in dec_idx]
+    decoded = rans_cuda.rans_decode_grouped(dec)
+    d_err = max(max_err(g, refs[i]["dec_ref"])
+                for g, i in zip(decoded, dec_idx))
+    if err or d_err:
+        raise AssertionError(f"grouped kernels != plain: {err} {d_err}")
+    starts = [torch.cumsum(c[3].to(torch.int64), 0) for c in chains]
+    chain_bytes = sum(nbytes(p.syms, p.lens, p.fc, c[0], c[3])
+                      for p, c in zip(planes, chains))
+    place_bytes = sum(nbytes(pl) for pl in places)
+    chain_traffic = sum(nbytes(p.syms, p.lens, p.fc, *c)
+                        for p, c in zip(planes, chains))
+    place_traffic = sum(nbytes(c[1], c[2], st, pl)
+                        for c, st, pl in zip(chains, starts, places))
+    dec_bytes = sum(nbytes(p.counts, p.starts, p.states, p.lens, p.table,
+                           p.payload, *o) for p, o in zip(dec, decoded))
+
+    def plain_sum(key, idx):
+        return sum(refs[i]["row"][key] for i in idx)
+
+    row = dict(
+        planes=[cases[i][0] for i in enc_idx],
+        decoded_planes=[cases[i][0] for i in dec_idx],
+        chain_ms=cuda_ms(lambda: rans_cuda.rans_encode_chain(planes), 10),
+        place_ms=cuda_ms(
+            lambda: rans_cuda.rans_encode_place([c[1:] for c in chains]), 10),
+        dec_ms=cuda_ms(lambda: rans_cuda.rans_decode_grouped(dec), 10),
+        chain_plain_ms=plain_sum("chain_plain_ms", enc_idx),
+        place_plain_ms=plain_sum("place_plain_ms", enc_idx),
+        dec_plain_ms=plain_sum("dec_plain_ms", dec_idx),
+        chain_bytes=chain_bytes, place_bytes=place_bytes,
+        k1_bytes=chain_bytes + place_bytes, dec_bytes=dec_bytes,
+        chain_traffic_bytes=chain_traffic, place_traffic_bytes=place_traffic,
+        max_abs_err=max(err, d_err))
+    row["k1_ms"] = row["chain_ms"] + row["place_ms"]
+    for p in ("chain", "place", "k1", "dec"):
+        row[f"{p}_bound_ms"] = row[f"{p}_bytes"] / HBM_BYTES_PER_MS
+        row[f"{p}_bound_share"] = row[f"{p}_bound_ms"] / row[f"{p}_ms"]
+    print("rans grouped batch", json.dumps(row), flush=True)
+    return row
+
+
+def check_cg2d(high: torch.Tensor, preview: torch.Tensor, dev, results):
+    """K3 against its plain version on a batch of real frames, on a batch
+    of previews (the preview decode's launch) and on a tall frame; its
+    bound is 1 byte in and 1 byte out per pixel at 3.35 TB/s."""
     rng = np.random.default_rng(0)
     tall = torch.from_numpy(
         rng.integers(0, 256, TALL, np.int64).astype(np.uint8)
     ).to(dev)
     for name, plane, plain_reps in (
         (str(list(high[:16].shape)), high[:16].contiguous(), 2),
+        (str(list(preview.shape)), preview.contiguous(), 2),
         (str(list(TALL)), tall, 0),
     ):
         res = predict.cg2d_encode(plane)
@@ -271,7 +378,10 @@ def check_cg2d(high: torch.Tensor, dev, results):
             raise AssertionError(f"K3 wrong on {name}: {err}")
         row = dict(case=name, ms=cuda_ms(run, 5),
                    plain_ms=cuda_ms(run_ref, plain_reps) if plain_reps
-                   else plain_once, max_abs_err=err)
+                   else plain_once,
+                   bound_ms=2 * plane.numel() / HBM_BYTES_PER_MS,
+                   max_abs_err=err)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         print("cg2d", json.dumps(row), flush=True)
         results.append(row)
 
@@ -345,15 +455,22 @@ def check_reader(data: bytes, out: np.ndarray, dev) -> dict:
     r = FpvtReader(data, device=dev)
     row = {}
     # frame 0 (the delta frame), a batch's first frame, a mid-chain frame
-    # (index 7 of a batch) and the last frame
+    # (index 7 of a batch) and the last frame; each frame of a chain is one
+    # K2 launch for its high and low planes together
     for i in (0, 1 + FPB, 1 + FPB + 7, N_FRAMES - 1):
+        before = kernels.LAUNCHES["rans_decode"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         got = r.decode_frame(i)
         torch.cuda.synchronize()
         row[f"decode_frame_{i}_s"] = time.perf_counter() - t0
+        row[f"decode_frame_{i}_k2_launches"] = (
+            kernels.LAUNCHES["rans_decode"] - before)
         if not np.array_equal(got, out[i]):
             raise AssertionError(f"decode_frame({i}) != full decode")
+    if row[f"decode_frame_{1 + FPB}_k2_launches"] != 1:
+        raise AssertionError("an anchor frame's planes took more than one "
+                             "K2 launch")
     t0 = time.perf_counter()
     r.decode_batch(1)
     torch.cuda.synchronize()
@@ -389,6 +506,34 @@ def check_streaming(data: bytes, out: np.ndarray, dev) -> None:
     print("streaming reader (1 MiB pieces): frames equal", flush=True)
 
 
+def check_grouped_launches(data: bytes, enc: dict, dec: dict) -> None:
+    """The main path groups its planes: the fused encode launches K1a and
+    K1b once per batch (the delta section codes its planes one by one),
+    and the decode launches K2 once per batch and once for the delta
+    section, each for its high and low planes together."""
+    def with_coding(codings, *streams):
+        return [s for s in streams if s is not None and s.coding in codings]
+
+    # K1 codes every plane that is not constant (a raw plane is chosen after
+    # coding); K2 decodes the rANS-coded ones
+    k1, k2 = ((CODING_ORDER0, CODING_CTX16, CODING_RAW),
+              (CODING_ORDER0, CODING_CTX16))
+    _dflags, dh, dl = fpvt.parse_delta_section(data, fpvt.HEADER_SIZE)
+    batches = [fpvt.parse_batch_section(data, off)
+               for off, _n in fpvt.parse_footer(data)]
+    want_k1 = (sum(bool(with_coding(k1, b.high, b.low, b.preview))
+                   for b in batches) + len(with_coding(k1, dh, dl)))
+    want_k2 = (sum(bool(with_coding(k2, b.high, b.low)) for b in batches)
+               + bool(with_coding(k2, dh, dl)))
+    got = (enc["rans_encode_chain"], enc["rans_encode_place"],
+           dec["rans_decode"])
+    if got != (want_k1, want_k1, want_k2):
+        raise AssertionError(f"grouped launches {got}, want "
+                             f"{(want_k1, want_k1, want_k2)}")
+    print("main path grouped launches", json.dumps(dict(
+        batches=len(batches), encode=enc, decode=dec)), flush=True)
+
+
 def main() -> None:
     # The run uses one card: only the first visible one is made visible,
     # before CUDA starts, so the device count reported is the card used.
@@ -417,9 +562,12 @@ def main() -> None:
 
     rans_rows, cg_rows = [], []
     m, cases = rans_cases(frames, dev)
-    check_rans(cases, dev, rans_rows)
-    check_cg2d(m["high"], dev, cg_rows)
-    del m, cases
+    refs = check_rans(cases, dev, rans_rows)
+    # the main path's batch: high, ctx16 low and preview encode together;
+    # high and low decode together
+    grouped = check_rans_grouped(cases, refs, (0, 2, 1), (0, 2))
+    check_cg2d(m["high"], m["preview"], dev, cg_rows)
+    del m, cases, refs
     narrow = narrow_cases(dev)
     check_rans(narrow[:2], dev, rans_rows)
     check_rans(narrow[2:], dev, rans_rows, plain_reps=0)
@@ -427,12 +575,15 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # the main path, counted
+    enc_launches = {}
+
     def round_trip():
         t0 = time.perf_counter()
         data = encode_file_fpvt(frames, shift=SHIFT, frames_per_batch=FPB,
                                 chunk_log2=CHUNK_LOG2, device=dev)
         torch.cuda.synchronize()
         t_enc = time.perf_counter() - t0
+        enc_launches.update(kernels.LAUNCHES)
         t0 = time.perf_counter()
         out = decode_file_fpvt(data, device=dev)
         torch.cuda.synchronize()
@@ -443,6 +594,8 @@ def main() -> None:
     )
     if out.shape != frames.shape or not np.array_equal(out, frames << SHIFT):
         raise AssertionError("main path round trip is not lossless")
+    dec_launches = {k: v - enc_launches[k] for k, v in launches.items()}
+    check_grouped_launches(data, enc_launches, dec_launches)
     mpix = frames.size / 1e6
     modes = np.zeros(3, np.int64)  # batch frames per spatial predictor
     for off, _n in fpvt.parse_footer(data):
@@ -468,9 +621,9 @@ def main() -> None:
         raise AssertionError("small file round trip is not lossless")
     print("small file: card bytes == CPU bytes, lossless", flush=True)
 
-    counted("golden", ("rans_encode", "rans_decode"),
-            lambda: check_golden(dev))
-    counted("narrow max", ("rans_encode", "rans_decode"),
+    k1 = ("rans_encode_chain", "rans_encode_place")
+    counted("golden", (*k1, "rans_decode"), lambda: check_golden(dev))
+    counted("narrow max", (*k1, "rans_decode"),
             lambda: check_narrow_max(dev))
     row, _ = counted("random access", ("rans_decode",),
                      lambda: check_reader(data, out, dev))
@@ -482,29 +635,42 @@ def main() -> None:
             lambda: check_streaming(data, out, dev))
     del out
 
-    main_rans = rans_rows[0]
+    err = max(r["max_abs_err"] for r in rans_rows + [grouped])
 
-    def rans_cases_line(prefix):
+    def cases_line(*keys):
         return [dict(case=r["case"], lanes=r["lanes"], k=r["chunk_len"],
-                     ms=r[f"{prefix}_ms"], plain_ms=r[f"{prefix}_plain_ms"],
                      plain_timing=r["plain_timing"],
-                     max_abs_err=r["max_abs_err"]) for r in rans_rows]
+                     max_abs_err=r["max_abs_err"],
+                     **{key: r[key] for key in keys}) for r in rans_rows]
 
+    def rans_kernel(name, source, replaces, key, cases):
+        row = dict(
+            name=name, route="cuda", source=f"fpv_tpu_torch/csrc/{source}",
+            replaces=replaces, launches=launches[name], max_abs_err=err,
+            ms=grouped[f"{key}_ms"], plain_ms=grouped[f"{key}_plain_ms"],
+            bound_ms=grouped[f"{key}_bound_ms"], bound_by="bytes",
+            library_ms=None, shape="one main-path batch: "
+            + " + ".join(grouped["decoded_planes" if key == "dec"
+                                 else "planes"]),
+            bound_bytes=grouped[f"{key}_bytes"])
+        if key != "dec":
+            # the pass's share of K1's bound, K1 whole beside it
+            row.update(traffic_bytes=grouped[f"{key}_traffic_bytes"],
+                       k1_ms=grouped["k1_ms"],
+                       k1_bound_ms=grouped["k1_bound_ms"],
+                       k1_bound_share=grouped["k1_bound_share"])
+        row["cases"] = cases
+        return row
+
+    enc_src = ("rans_encode.cu", "fpv_tpu/ops/rans_pallas.py:880")
     kernels_line = {"kernels": [
-        dict(name="rans_encode", route="cuda",
-             source="fpv_tpu_torch/csrc/rans_encode.cu",
-             replaces="fpv_tpu/ops/rans_pallas.py:880",
-             launches=launches["rans_encode"],
-             max_abs_err=max(r["max_abs_err"] for r in rans_rows),
-             ms=main_rans["enc_ms"], plain_ms=main_rans["enc_plain_ms"],
-             shape=main_rans["case"], cases=rans_cases_line("enc")),
-        dict(name="rans_decode", route="cuda",
-             source="fpv_tpu_torch/csrc/rans_decode.cu",
-             replaces="fpv_tpu/ops/rans_pallas.py:999",
-             launches=launches["rans_decode"],
-             max_abs_err=max(r["max_abs_err"] for r in rans_rows),
-             ms=main_rans["dec_ms"], plain_ms=main_rans["dec_plain_ms"],
-             shape=main_rans["case"], cases=rans_cases_line("dec")),
+        rans_kernel("rans_encode_chain", *enc_src, "chain",
+                    cases_line("chain_ms", "chain_plain_ms", "enc_ms")),
+        rans_kernel("rans_encode_place", *enc_src, "place",
+                    cases_line("place_ms", "place_plain_ms")),
+        rans_kernel("rans_decode", "rans_decode.cu",
+                    "fpv_tpu/ops/rans_pallas.py:999", "dec",
+                    cases_line("dec_ms", "dec_plain_ms")),
         dict(name="cg2d_decode", route="cuda",
              source="fpv_tpu_torch/csrc/cg2d_decode.cu",
              replaces="fpv_tpu/ops/predict.py:231",
@@ -512,7 +678,8 @@ def main() -> None:
              preview_launches=pv_launches["cg2d_decode"],
              max_abs_err=max(r["max_abs_err"] for r in cg_rows),
              ms=cg_rows[0]["ms"], plain_ms=cg_rows[0]["plain_ms"],
-             shape=cg_rows[0]["case"]),
+             bound_ms=cg_rows[0]["bound_ms"], bound_by="bytes",
+             library_ms=None, shape=cg_rows[0]["case"], cases=cg_rows),
     ]}
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -32,15 +32,16 @@ import torch
 
 from fpv_tpu_torch.entropy import plane_codec
 from fpv_tpu_torch.entropy.plane_codec import (
+    PlaneJob,
     PlaneStream,
     _hist_flat,
     _to_block_symbols,
-    code_blocks,
+    code_planes,
     const_plane_stream,
     ctx_combine_device,
     ctx_presence_device,
     decode_plane_batch,
-    decode_plane_range,
+    decode_plane_ranges,
     encode_plane_batch,
     lens_tensor,
 )
@@ -324,20 +325,16 @@ def _pack_flags(m: dict) -> np.ndarray:
     ).astype(np.uint8)
 
 
-def _encode_plane_fused(
+def _fused_plane_job(
     plane: torch.Tensor, k: int, hist, mask, ctx: bool
-) -> PlaneStream:
-    """One residual plane batch [B, S] -> PlaneStream with device tables:
-    the CODING_CONST short-circuit, then K1 and the CODING_RAW policy."""
+) -> PlaneJob:
+    """K1's inputs for one residual plane batch [B, S] with device tables
+    (the ctx16 table histogram samples the step axis; ctx*16+sym itself is
+    computed inside K1 from the previous step's symbols)."""
     b, s = plane.shape
-    vmin, vmax = (int(v) for v in torch.aminmax(plane))
-    if vmin == vmax:
-        return const_plane_stream(b, s, k, vmin)
     lens = lens_tensor(b, s, k, plane.device)
     nblocks = lens.shape[0]
     if ctx:
-        # ctx*16+sym is computed inside K1 from the previous step's
-        # symbols; the table histogram samples the step axis
         syms = _to_block_symbols(plane >> 4, k, nblocks)
         sampled = syms[:, ::_HIST_STRIDE]
         prev_s = torch.cat(
@@ -354,8 +351,8 @@ def _encode_plane_fused(
         syms = _to_block_symbols(plane, k, nblocks)
         freq = normalize_freqs_device(hist, mask)
         fc = encode_tables_device(freq)
-    return code_blocks(plane, syms, lens, fc, freq.cpu().numpy(),
-                       CODING_CTX16 if ctx else CODING_ORDER0)
+    return PlaneJob(plane, syms, lens, fc, freq,
+                    CODING_CTX16 if ctx else CODING_ORDER0)
 
 
 def fused_encode_batch(
@@ -372,25 +369,34 @@ def fused_encode_batch(
     flags u8 [B], (high, low, preview) PlaneStreams; the preview is None
     for frames under 4x4), with the static-delta and (``allow_prev``)
     prev-frame temporal candidates.  Tables are normalized on the device;
-    only tables, states, counts and the tight payloads come to the host."""
+    one sync reads every plane's value range (CODING_CONST), then the
+    coded planes go through one K1a and one K1b launch together, and only
+    tables, states, counts and the tight payloads come to the host."""
     low_ctx = low_coding == CODING_CTX16
     m = encode_model_step(
         imgs, delta_high, delta_low, shift, big_endian, True, low_ctx,
         allow_prev,
     )
     b = imgs.shape[0]
-    streams = tuple(
-        _encode_plane_fused(
-            m[name].reshape(b, -1),
-            pv_chunk_len(chunk_len) if name == "preview" else chunk_len,
-            m[f"hist_{name}"], m[f"mask_{name}"],
-            ctx=name == "low" and low_ctx,
-        ) if m[name].numel() else None
-        for name in ("high", "low", "preview")
-    )
-    return _pack_flags(m), streams
-
-
+    names = [n for n in ("high", "low", "preview") if m[n].numel()]
+    planes = {n: m[n].reshape(b, -1) for n in names}
+    ranges = torch.stack(
+        [torch.stack(torch.aminmax(planes[n])) for n in names]
+    ).cpu().tolist() if names else []
+    streams: dict[str, PlaneStream | None] = dict.fromkeys(
+        ("high", "low", "preview"))
+    jobs = {}
+    for n, (vmin, vmax) in zip(names, ranges):
+        k = pv_chunk_len(chunk_len) if n == "preview" else chunk_len
+        if vmin == vmax:
+            streams[n] = const_plane_stream(b, planes[n].shape[1], k, vmin)
+        else:
+            jobs[n] = _fused_plane_job(planes[n], k, m[f"hist_{n}"],
+                                       m[f"mask_{n}"], n == "low" and low_ctx)
+    if jobs:
+        streams.update(zip(jobs, code_planes(list(jobs.values()))))
+    return _pack_flags(m), (streams["high"], streams["low"],
+                            streams["preview"])
 
 
 class FpvtWriter:
@@ -691,14 +697,30 @@ def _inverse_preview(
     return pv
 
 
+def _decode_high_low(
+    high: PlaneStream, low: PlaneStream | None, device, lo: int = 0,
+    hi: int | None = None, what: str = "",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symbols ``lo:hi`` (default: all) of a high plane stream and its
+    optional low plane stream, decoded together (one K2 launch) -> flat u8
+    tensors; a missing low plane is zeros."""
+    hi = high.nframes * high.plane_size if hi is None else hi
+    named = [(f"{what}high", high)]
+    if low is not None:
+        named.append((f"{what}low", low))
+    out = decode_plane_ranges([(n, st, lo, hi) for n, st in named], device)
+    if low is None:
+        out.append(torch.zeros_like(out[0]))
+    return out[0], out[1]
+
+
 def _decode_delta_planes(dflags, dh_stream, dl_stream, h, w, device):
     """Decode the delta-section planes, inverting the high plane's spatial
     prediction recorded in dflags bits 1-2 (see FpvtWriter._init_core)."""
-    dh = decode_plane_batch(dh_stream, device).reshape(1, h, w)
-    dh = _inverse_spatial(dh, np.array([(dflags >> F_SPATIAL_SHIFT) & 3]))
-    if dl_stream is None:
-        return dh[0], torch.zeros((h, w), dtype=torch.uint8, device=device)
-    return dh[0], decode_plane_batch(dl_stream, device).reshape(h, w)
+    dh, dl = _decode_high_low(dh_stream, dl_stream, device, what="delta ")
+    dh = _inverse_spatial(dh.reshape(1, h, w),
+                          np.array([(dflags >> F_SPATIAL_SHIFT) & 3]))
+    return dh[0], dl.reshape(h, w)
 
 
 def _apply_temporal(high, low, flags, delta_high, delta_low):
@@ -812,11 +834,8 @@ class FpvtReader:
         _check_batch_size(pb)
         h, w = self.header.ysize, self.header.xsize
         dev = self._device
-        high = decode_plane_batch(pb.high, dev).reshape(b, h, w)
-        if pb.low is not None:
-            low = decode_plane_batch(pb.low, dev).reshape(b, h, w)
-        else:
-            low = torch.zeros((b, h, w), dtype=torch.uint8, device=dev)
+        high, low = _decode_high_low(pb.high, pb.low, dev)
+        high, low = high.reshape(b, h, w), low.reshape(b, h, w)
         flags = pb.frame_flags
         high = _inverse_spatial(high, (flags >> F_SPATIAL_SHIFT) & 3)
         high, low = _apply_temporal(
@@ -879,16 +898,12 @@ class FpvtReader:
         h, w = self.header.ysize, self.header.xsize
         dev = self._device
         flags = int(pb.frame_flags[t])
-        s = h * w
-        high = decode_plane_range(pb.high, dev, t * s, (t + 1) * s)
+        high, low = _decode_high_low(pb.high, pb.low, dev, t * h * w,
+                                     (t + 1) * h * w)
         high = _inverse_spatial(
             high.reshape(1, h, w), np.array([(flags >> F_SPATIAL_SHIFT) & 3])
         )[0]
-        if pb.low is not None:
-            low = decode_plane_range(pb.low, dev, t * s, (t + 1) * s)
-            low = low.reshape(h, w)
-        else:
-            low = torch.zeros((h, w), dtype=torch.uint8, device=dev)
+        low = low.reshape(h, w)
         if flags & F_USE_PREV:
             return high + prev_high, low + prev_low
         if flags & F_USE_DELTA:
@@ -927,7 +942,8 @@ class FpvtReader:
             if ph * pw == 0:
                 return np.zeros((b, ph, pw), np.uint8)
             raise ValueError("batch has no preview stream")
-        res = decode_plane_batch(pb.preview, self._device).reshape(b, ph, pw)
+        res = decode_plane_batch(pb.preview, self._device, "preview")
+        res = res.reshape(b, ph, pw)
         return _inverse_preview(
             res, pb.frame_flags, self._delta_high
         ).cpu().numpy()

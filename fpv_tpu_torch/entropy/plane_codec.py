@@ -11,12 +11,14 @@ streams alike.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from fpv_tpu_torch.entropy.tables import normalize_freqs, normalize_freqs_ctx
 from fpv_tpu_torch.ops import rans_cuda
+from fpv_tpu_torch.ops.rans_cuda import PAYLOAD_ALIGN, PAYLOAD_PAD
 from fpv_tpu_torch.ops.rans_layout import (
     BLOCK_LANES,
     CODING_CONST,
@@ -206,38 +208,65 @@ def lens_tensor(
     return torch.from_numpy(lens.reshape(-1, lanes)).to(device)
 
 
-def code_blocks(
-    plane: torch.Tensor,
-    syms: torch.Tensor,
-    lens: torch.Tensor,
-    fc: torch.Tensor,
-    freq: np.ndarray,
-    coding: int,
-    allow_raw: bool = True,
-) -> PlaneStream:
-    """K1 on block symbols [nblocks, K, lanes], then (``allow_raw``) the
-    CODING_RAW policy: the [B, S] residual ``plane`` is stored verbatim
-    whenever that is not larger than the coded stream (ties go to raw —
-    same bytes, no decode kernel).  The sizes come from the counts alone,
-    so a losing payload is never serialized."""
-    b, s = plane.shape
-    _nb, k, lanes = syms.shape
-    ctx = coding == CODING_CTX16
-    states, counts, payload = rans_cuda.rans_encode(
-        syms, lens, fc, CTX_PROB_BITS if ctx else PROB_BITS, ctx
-    )
-    coded = coded_stream_bytes(lens.numel(), counts.numel(), payload.numel())
-    if allow_raw and raw_stream_bytes(b * s) <= coded:
-        return raw_plane_stream(b, s, k, plane.cpu().numpy())
-    return PlaneStream(
-        nframes=b, plane_size=s, chunk_len=k,
-        freq=np.asarray(freq).astype(np.uint16),
-        states=states.reshape(-1).cpu().numpy().view(np.uint32),
-        block_counts=counts.cpu().numpy().astype(np.uint32),
-        payload=payload.cpu().numpy().view(np.uint16),
-        coding=coding,
-        lanes=lanes,
-    )
+class PlaneJob(NamedTuple):
+    """One plane batch ready for K1: the [B, S] u8 residual ``plane``, its
+    block symbols [nblocks, K, lanes] (ctx16: nibbles), lane lengths,
+    encode table tensor, frequency table (numpy or tensor) and coding."""
+
+    plane: torch.Tensor
+    syms: torch.Tensor
+    lens: torch.Tensor
+    fc: torch.Tensor
+    freq: np.ndarray | torch.Tensor
+    coding: int
+
+
+def code_planes(jobs: list[PlaneJob], allow_raw: bool = True
+                ) -> list[PlaneStream]:
+    """K1 on several plane batches at once (one launch of each pass), then
+    per plane (``allow_raw``) the CODING_RAW policy: the [B, S] residual
+    plane is stored verbatim whenever that is not larger than the coded
+    stream (ties go to raw — same bytes, no decode kernel).  The sizes
+    come from the counts alone, so a losing payload is never serialized.
+    States, counts and frequency tables come to the host in one copy
+    each, then each coded plane's payload."""
+    coded = rans_cuda.rans_encode_grouped([
+        rans_cuda.EncodePlane(
+            j.syms, j.lens, j.fc,
+            CTX_PROB_BITS if j.coding == CODING_CTX16 else PROB_BITS,
+            j.coding == CODING_CTX16,
+        ) for j in jobs
+    ])
+    states = torch.cat([st.reshape(-1) for st, _c, _p in coded]).cpu()
+    counts = torch.cat([c for _s, c, _p in coded]).cpu()
+    freqs = [j.freq for j in jobs]
+    dev_freqs = [f.reshape(-1) for f in freqs if isinstance(f, torch.Tensor)]
+    if dev_freqs:
+        host = iter(torch.cat(dev_freqs).cpu().split(
+            [f.numel() for f in dev_freqs]))
+        freqs = [next(host).numpy() if isinstance(f, torch.Tensor) else f
+                 for f in freqs]
+    out = []
+    s0 = c0 = 0
+    for job, freq, (st, cnt, payload) in zip(jobs, freqs, coded):
+        b, s = job.plane.shape
+        _nb, k, lanes = job.syms.shape
+        s1, c1 = s0 + st.numel(), c0 + cnt.numel()
+        size = coded_stream_bytes(st.numel(), cnt.numel(), payload.numel())
+        if allow_raw and raw_stream_bytes(b * s) <= size:
+            out.append(raw_plane_stream(b, s, k, job.plane.cpu().numpy()))
+        else:
+            out.append(PlaneStream(
+                nframes=b, plane_size=s, chunk_len=k,
+                freq=np.asarray(freq).astype(np.uint16),
+                states=states[s0:s1].numpy().view(np.uint32),
+                block_counts=counts[c0:c1].numpy().astype(np.uint32),
+                payload=payload.cpu().numpy().view(np.uint16),
+                coding=job.coding,
+                lanes=lanes,
+            ))
+        s0, c0 = s1, c1
+    return out
 
 
 def encode_plane_batch(
@@ -290,7 +319,8 @@ def encode_plane_batch(
             return const_plane_stream(b, s, chunk_len, vmin)
     syms, lens, fc, freq = plane_blocks(plane, chunk_len, lanes, coding,
                                         hist, mask)
-    return code_blocks(plane, syms, lens, fc, freq, coding, allow_raw)
+    return code_planes([PlaneJob(plane, syms, lens, fc, freq, coding)],
+                       allow_raw)[0]
 
 
 def plane_blocks(
@@ -328,67 +358,103 @@ def plane_blocks(
     return syms, lens, rans_cuda.u32_tensor(fc, plane.device), freq
 
 
-def decode_blocks(
-    stream: PlaneStream, device, b0: int, b1: int
+def decode_blocks_grouped(
+    jobs: list[tuple[str, PlaneStream, int, int]], device
+) -> list[torch.Tensor]:
+    """K2 on rANS blocks ``b0..b1`` (inclusive) of several coded streams,
+    ``jobs`` of (name, stream, b0, b1), in one launch -> each job's flat u8
+    symbols [(b1-b0+1) * K * lanes] on ``device`` (ctx16 nibbles moved
+    back to the high nibble).  Only those blocks' states, counts and
+    payload words are uploaded: each kind of table in one copy, the
+    payload slices 16-byte aligned in one padded device buffer, as K2
+    stages them.  The ok flags are read once; a failed check raises
+    ValueError naming the plane."""
+    parts = {k: [] for k in ("counts", "starts", "states", "lens", "table")}
+    pay_off, pays, pos = [], [], 0
+    for _name, st, b0, b1 in jobs:
+        lanes, nseg = st.lanes, num_segments(st.chunk_len)
+        counts = st.block_counts.astype(np.int64)
+        cum = np.zeros(len(counts) + 1, np.int64)
+        cum[1:] = np.cumsum(counts)
+        g0, g1 = b0 * nseg, (b1 + 1) * nseg
+        ctx = st.coding == CODING_CTX16
+        parts["counts"].append(counts[g0:g1].astype(np.int32))
+        parts["starts"].append(cum[g0:g1] - cum[g0])
+        parts["states"].append(st.states[b0 * lanes : (b1 + 1) * lanes]
+                               .view(np.int32))
+        parts["lens"].append(chunk_lens(st.nframes, st.plane_size,
+                                        st.chunk_len, lanes)
+                             [b0 * lanes : (b1 + 1) * lanes])
+        parts["table"].append(
+            (rans_cuda.ctx_fused_table_arrays(st.freq) if ctx
+             else rans_cuda.fused_table_arrays(st.freq)).view(np.int32))
+        pays.append(st.payload[cum[g0] : cum[g1]])
+        pay_off.append(pos)
+        pos += -(-len(pays[-1]) // PAYLOAD_ALIGN) * PAYLOAD_ALIGN
+    # each slice goes straight to its place in one device buffer (the pad
+    # past the last is never read as a word, only staged)
+    dev_pay = torch.empty(pos + PAYLOAD_PAD, dtype=torch.int16, device=device)
+    for off, p in zip(pay_off, pays):
+        dev_pay[off : off + len(p)].copy_(torch.from_numpy(p.view(np.int16)))
+    on_dev = {k: torch.from_numpy(np.concatenate(v)).to(device)
+              .split([len(a) for a in v]) for k, v in parts.items()}
+    planes = []
+    for i, (_name, st, _b0, _b1) in enumerate(jobs):
+        ctx = st.coding == CODING_CTX16
+        planes.append(rans_cuda.DecodePlane(
+            on_dev["counts"][i], on_dev["starts"][i],
+            on_dev["states"][i].view(-1, st.lanes),
+            on_dev["lens"][i].view(-1, st.lanes), on_dev["table"][i],
+            dev_pay[pay_off[i] : pay_off[i] + len(pays[i])], st.chunk_len,
+            CTX_PROB_BITS if ctx else PROB_BITS, ctx,
+        ))
+    decoded = rans_cuda.rans_decode_grouped(planes)
+    ok = torch.stack([(o == 1).all() for _s, o in decoded]).cpu()
+    for (name, _st, _b0, _b1), good in zip(jobs, ok.tolist()):
+        if not good:
+            what = f" ({name} plane)" if name else ""
+            raise ValueError(f"rANS stream integrity check failed{what}")
+    return [
+        syms.reshape(-1) << 4 if st.coding == CODING_CTX16
+        else syms.reshape(-1)
+        for (_n, st, _b0, _b1), (syms, _ok) in zip(jobs, decoded)
+    ]
+
+
+def decode_plane_ranges(
+    requests: list[tuple[str, PlaneStream, int, int]], device
+) -> list[torch.Tensor]:
+    """Symbols ``lo:hi`` of plane batches' flat streams, ``requests`` of
+    (name, stream, lo, hi) -> u8 [hi - lo] each on ``device``.  The coded
+    streams decode in one K2 launch, each from only the rANS blocks
+    covering its range (blocks are contiguous in the flat stream), so one
+    frame of a 1024-lane batch costs at most ceil(S / (K * 1024)) + 1
+    blocks per plane.  Raises ValueError when a rANS integrity check
+    fails."""
+    out: list[torch.Tensor | None] = [None] * len(requests)
+    jobs, where = [], []
+    for i, (name, st, lo, hi) in enumerate(requests):
+        if st.coding == CODING_CONST:
+            out[i] = torch.full((hi - lo,), st.value, dtype=torch.uint8,
+                                device=device)
+        elif st.coding == CODING_RAW:
+            out[i] = torch.from_numpy(st.raw_bytes[lo:hi].copy()).to(device)
+        else:
+            span = st.chunk_len * st.lanes
+            jobs.append((name, st, lo // span, (hi - 1) // span))
+            where.append((i, lo - lo // span * span, hi - lo))
+    if jobs:
+        for (i, a, n), flat in zip(where,
+                                   decode_blocks_grouped(jobs, device)):
+            out[i] = flat[a : a + n]
+    return out
+
+
+def decode_plane_batch(
+    stream: PlaneStream, device, name: str = ""
 ) -> torch.Tensor:
-    """K2 on rANS blocks ``b0..b1`` (inclusive) of a coded stream -> their
-    flat u8 symbols [(b1-b0+1) * K * lanes] on ``device`` (ctx16 nibbles
-    moved back to the high nibble).  Only those blocks' states, counts and
-    payload words are uploaded.  Raises ValueError when the rANS integrity
-    check fails."""
-    b, s, k, lanes = (stream.nframes, stream.plane_size, stream.chunk_len,
-                      stream.lanes)
-    nseg = num_segments(k)
-    ctx = stream.coding == CODING_CTX16
-    counts = stream.block_counts.astype(np.int64)
-    cum = np.zeros(len(counts) + 1, np.int64)
-    cum[1:] = np.cumsum(counts)
-    g0, g1 = b0 * nseg, (b1 + 1) * nseg
-    payload = np.ascontiguousarray(stream.payload[cum[g0] : cum[g1]],
-                                   np.uint16)
-    lens = chunk_lens(b, s, k, lanes).reshape(-1, lanes)[b0 : b1 + 1]
-    table = (rans_cuda.ctx_fused_table_arrays(stream.freq) if ctx
-             else rans_cuda.fused_table_arrays(stream.freq))
-    syms, ok = rans_cuda.rans_decode(
-        torch.from_numpy(counts[g0:g1].astype(np.int32)).to(device),
-        torch.from_numpy(cum[g0:g1] - cum[g0]).to(device),
-        rans_cuda.u32_tensor(
-            stream.states[b0 * lanes : (b1 + 1) * lanes], device
-        ).reshape(-1, lanes),
-        torch.from_numpy(np.ascontiguousarray(lens)).to(device),
-        rans_cuda.u32_tensor(table, device),
-        torch.from_numpy(payload.view(np.int16)).to(device),
-        k,
-        prob_bits=CTX_PROB_BITS if ctx else PROB_BITS,
-        ctx_mode=ctx,
-    )
-    if not bool((ok == 1).all()):
-        raise ValueError("rANS stream integrity check failed")
-    flat = syms.reshape(-1)
-    return flat << 4 if ctx else flat
-
-
-def decode_plane_range(
-    stream: PlaneStream, device, lo: int, hi: int
-) -> torch.Tensor:
-    """Symbols ``lo:hi`` of a plane batch's flat stream -> u8 [hi - lo] on
-    ``device``.  A coded stream decodes only the rANS blocks covering the
-    range (blocks are contiguous in the flat stream), so one frame of a
-    1024-lane batch costs at most ceil(S / (K * 1024)) + 1 blocks.  Raises
-    ValueError when the rANS integrity check fails."""
-    if stream.coding == CODING_CONST:
-        return torch.full((hi - lo,), stream.value, dtype=torch.uint8,
-                          device=device)
-    if stream.coding == CODING_RAW:
-        return torch.from_numpy(stream.raw_bytes[lo:hi].copy()).to(device)
-    span = stream.chunk_len * stream.lanes
-    b0 = lo // span
-    flat = decode_blocks(stream, device, b0, (hi - 1) // span)
-    return flat[lo - b0 * span : hi - b0 * span]
-
-
-def decode_plane_batch(stream: PlaneStream, device) -> torch.Tensor:
-    """Decode a PlaneStream -> [B, S] uint8 tensor on ``device``; raises
+    """Decode one PlaneStream -> [B, S] uint8 tensor on ``device``; raises
     ValueError when the rANS integrity check fails."""
     b, s = stream.nframes, stream.plane_size
-    return decode_plane_range(stream, device, 0, b * s).reshape(b, s)
+    return decode_plane_ranges([(name, stream, 0, b * s)],
+                               device)[0].reshape(b, s)

@@ -30,24 +30,23 @@ BUILD_DIR = CSRC.parent.parent / "build" / "fpv_tpu_torch"
 SOURCES = ("rans_encode.cu", "rans_decode.cu", "cg2d_decode.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES = {"rans_encode": 0, "rans_decode": 0, "cg2d_decode": 0}
+LAUNCHES = {"rans_encode_chain": 0, "rans_encode_place": 0,
+            "rans_decode": 0, "cg2d_decode": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry points: name -> argtypes (every entry returns cudaError_t as int)
 _SIGNATURES = {
-    # syms, lens, fc, nidx, nblocks, lanes, chunk_len, prob_bits, ctx_mode,
-    # states, words, counts, stream
-    "fpvt_rans_encode": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                         _P),
-    # counts, starts, states, lens, table, payload, total_words, nblocks,
-    # lanes, chunk_len, prob_bits, ctx_mode, out, ok, stream
-    "fpvt_rans_decode": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P,
-                         _P, _P),
+    # descs, ndesc, nctas, stream
+    "fpvt_rans_encode_chain": (_P, _I, _I, _P),
+    # descs, ndesc, ngroups, payload, stream
+    "fpvt_rans_encode_place": (_P, _I, _I, _P, _P),
+    # descs, ndesc, nctas, threads, stream
+    "fpvt_rans_decode": (_P, _I, _I, _I, _P),
     # res, out, b, h, w, stream
     "fpvt_cg2d_decode": (_P, _P, _I, _I, _I, _P),
 }
@@ -76,9 +75,9 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libfpvt_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds: list[list[str]]) -> None:
+def _run_all(cmds: list[list[str]]) -> str:
     """Run the commands at once; raise with the output of the first that
-    fails."""
+    fails, else return their outputs joined."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
@@ -86,11 +85,14 @@ def _run_all(cmds: list[list[str]]) -> None:
     for p, out in zip(procs, outs):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed ({p.returncode}):\n{out}")
+    return "".join(outs)
 
 
 def build() -> pathlib.Path:
     """Compile the kernels (if this exact source set is not built yet): one
-    nvcc per source, all started together, then one link."""
+    nvcc per source, all started together, then one link.  The compiler's
+    report (ptxas registers, shared memory, spills per kernel) is kept
+    beside the library as ``<library>.log``."""
     out = library_path()
     if out.exists():
         return out
@@ -98,8 +100,9 @@ def build() -> pathlib.Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
         nvcc = _nvcc()
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
-                  for s, o in zip(SOURCES, objs)])
+        report = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
+                           for s, o in zip(SOURCES, objs)])
+        out.with_suffix(".log").write_text(report)
         lib = os.path.join(tmp, out.name)
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
         os.replace(lib, out)

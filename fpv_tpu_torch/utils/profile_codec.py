@@ -12,10 +12,11 @@ chunk_log2 12) and prints one JSON line per part:
    with device time (kernels and copies; all on one stream) sum to the
    device's busy time; ``busy_share`` is that over the traced wall time.
 3. ``phases``: one call of each with a synchronize around every phase
-   (upload, model step, plane coding, K1/K2 wrappers, serialization,
-   parse, inverse spatial, temporal, combine + download).  The syncs add
-   time, so this is a breakdown, not a rate.  Nested phases overlap: the
-   K1 wrapper is inside plane coding, which is inside the batch encode.
+   (upload, model step, tables, plane coding, K1a/K1b/K2 wrappers,
+   serialization, parse, inverse spatial, temporal, combine + download).
+   The syncs add time, so this is a breakdown, not a rate.  Nested phases
+   overlap: the K1a/K1b wrappers are inside plane coding, which is inside
+   the batch encode.
 """
 
 from __future__ import annotations
@@ -40,12 +41,14 @@ PHASES = (
     (fpvt_codec.FpvtWriter, "_put", "enc.upload"),
     (fpvt_codec.FpvtWriter, "init", "enc.delta_section"),
     (fpvt_codec, "encode_model_step", "enc.model_step"),
-    (fpvt_codec, "_encode_plane_fused", "enc.plane (tables+K1+pull)"),
-    (rans_cuda, "rans_encode", "enc.K1 (wrapper)"),
+    (fpvt_codec, "_fused_plane_job", "enc.tables"),
+    (fpvt_codec, "code_planes", "enc.planes (K1 + pull)"),
+    (rans_cuda, "rans_encode_chain", "enc.K1a (wrapper)"),
+    (rans_cuda, "rans_encode_place", "enc.K1b (wrapper + counts pull)"),
     (fpvt, "serialize_batch_section", "enc.serialize"),
     (fpvt, "parse_batch_section", "dec.parse"),
-    (fpvt_codec, "decode_plane_batch", "dec.plane (upload+K2)"),
-    (rans_cuda, "rans_decode", "dec.K2 (wrapper)"),
+    (fpvt_codec, "decode_plane_ranges", "dec.planes (upload+K2)"),
+    (rans_cuda, "rans_decode_grouped", "dec.K2 (wrapper)"),
     (fpvt_codec, "_inverse_spatial", "dec.inverse_spatial"),
     (fpvt_codec, "_apply_temporal", "dec.temporal"),
     (fpvt_codec, "_to_u16", "dec.combine+download"),

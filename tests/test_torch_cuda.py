@@ -69,30 +69,173 @@ CASES = [
 ]
 
 
+def _on_card(p, cuda):
+    """A DecodePlane on the CPU -> the same on the card, its payload laid
+    out as K2 stages it."""
+    p = tc.DecodePlane(*(a.to(cuda) if isinstance(a, torch.Tensor) else a
+                         for a in p))
+    return p._replace(payload=tc.staged_payload(p.payload))
+
+
+def _check_decode(cuda, planes):
+    """K2 on ``planes`` (DecodePlane tuples on the CPU) in one grouped
+    launch against the plain version per plane: symbols and ok flags."""
+    got = tc.rans_decode_grouped([_on_card(p, cuda) for p in planes])
+    for p, (g_syms, g_ok) in zip(planes, got):
+        r_syms, r_ok = tc.rans_decode_ref(*p)
+        torch.testing.assert_close(g_syms.cpu(), r_syms, rtol=0, atol=0)
+        torch.testing.assert_close(g_ok.cpu(), r_ok, rtol=0, atol=0)
+    return got
+
+
+def _check_encode(cuda, planes):
+    """K1a and K1b on ``planes`` (EncodePlane tuples on the CPU), each in
+    one grouped launch, against their plain versions per plane; returns
+    the plain (states, counts, payload) of each."""
+    on_card = [tc.EncodePlane(p.syms.to(cuda), p.lens.to(cuda),
+                              p.fc.to(cuda), p.prob_bits, p.ctx_mode)
+               for p in planes]
+    chains = tc.rans_encode_chain(on_card)
+    places = tc.rans_encode_place([c[1:] for c in chains])
+    out = []
+    for p, chain, place in zip(planes, chains, places):
+        ref = tc.rans_encode_chain_ref(*p)
+        for r, g in zip(ref, chain):
+            torch.testing.assert_close(g.cpu(), r, rtol=0, atol=0)
+        payload = tc.rans_place_ref(ref[1], ref[2])
+        torch.testing.assert_close(place.cpu(), payload, rtol=0, atol=0)
+        out.append((ref[0], ref[3], payload))
+    return out
+
+
+def _decode_planes(enc, planes, tables):
+    return [tc.DecodePlane(
+        counts, torch.cumsum(counts.to(torch.int64), 0) - counts, states,
+        p.lens, table, payload, p.syms.shape[1], p.prob_bits, p.ctx_mode)
+        for (states, counts, payload), p, table in zip(enc, planes, tables)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,k,ctx,lanes", CASES)
 def test_rans_kernels_match_plain(cuda, n, k, ctx, lanes):
+    """K1a, K1b and K2 equal their plain versions; K2 inverts K1; a
+    flipped payload word and a corrupted count decode to the plain
+    version's symbols and ok flags (the flip always fails the check)."""
     syms, lens, fc, table = _case(n, k, ctx, seed=n % 97, lanes=lanes)
     pb = CTX_PROB_BITS if ctx else 12
-    ref = tc.rans_encode_ref(syms, lens, fc, pb, ctx)
-    got = tc.rans_encode(syms.to(cuda), lens.to(cuda), fc.to(cuda), pb, ctx)
-    for r, g in zip(ref, got):
-        torch.testing.assert_close(g.cpu(), r, rtol=0, atol=0)
-    states, counts, payload = ref
-    starts = torch.cumsum(counts.to(torch.int64), 0) - counts
-    for flip in (False, True):
-        pay = payload.clone()
-        if flip:
-            pay[pay.numel() // 3] ^= 0x5A5A
-        args = (counts, starts, states, lens, table, pay)
-        r_syms, r_ok = tc.rans_decode_ref(*args, k, pb, ctx)
-        g_syms, g_ok = tc.rans_decode(*(a.to(cuda) for a in args), k, pb,
-                                      ctx)
-        torch.testing.assert_close(g_syms.cpu(), r_syms, rtol=0, atol=0)
-        torch.testing.assert_close(g_ok.cpu(), r_ok, rtol=0, atol=0)
-        assert bool(r_ok.all()) != flip
-        if not flip:
-            torch.testing.assert_close(r_syms, syms, rtol=0, atol=0)
+    plane = tc.EncodePlane(syms, lens, fc, pb, ctx)
+    enc = _check_encode(cuda, [plane])
+    states, counts, payload = enc[0]
+    torch.testing.assert_close(
+        tc.rans_encode_grouped([tc.EncodePlane(
+            syms.to(cuda), lens.to(cuda), fc.to(cuda), pb, ctx)])[0][2].cpu(),
+        payload, rtol=0, atol=0)
+    dec = _decode_planes(enc, [plane], [table])[0]
+    g_syms, g_ok = _check_decode(cuda, [dec])[0]
+    torch.testing.assert_close(g_syms.cpu(), syms, rtol=0, atol=0)
+    assert bool((g_ok == 1).all())
+    bad = payload.clone()
+    bad[bad.numel() // 3] ^= 0x5A5A
+    _b_syms, b_ok = _check_decode(cuda, [dec._replace(payload=bad)])[0]
+    assert not bool((b_ok == 1).all())
+    bad_count = counts.clone()
+    bad_count[bad_count.numel() // 2] += 3
+    _check_decode(cuda, [dec._replace(counts=bad_count)])
+
+
+def _worst_case(lanes, k, seed):
+    """Symbols of frequency 1 (of 4096) only: the most words a stream can
+    carry (about 3 of every 4 steps emit a word in every active lane), so
+    K2's shared window moves close to ``lanes`` words per step."""
+    rng = np.random.default_rng(seed)
+    freq = np.ones(256, np.int64)
+    freq[0] = 4096 - 255
+    lens = rng.integers(k // 2, k + 1, (2, lanes)).astype(np.int32)
+    lens[:, 3] = 0  # a zero-length lane
+    syms = rng.integers(1, 256, (2, k, lanes)).astype(np.uint8)
+    syms[np.arange(k)[None, :, None] >= lens[:, None, :]] = 0
+    return (tc.EncodePlane(torch.from_numpy(syms), torch.from_numpy(lens),
+                           tc.u32_tensor(tc.table_arrays(freq), "cpu")),
+            tc.u32_tensor(tc.fused_table_arrays(freq), "cpu"))
+
+
+def _quiet_case(lanes, k):
+    """One symbol of frequency 3841 everywhere: the state never grows past
+    2^19, so no lane emits and the payload is empty."""
+    freq = np.ones(256, np.int64)
+    freq[0] = 4096 - 255
+    syms = torch.zeros((1, k, lanes), dtype=torch.uint8)
+    lens = torch.full((1, lanes), k, dtype=torch.int32)
+    return (tc.EncodePlane(syms, lens,
+                           tc.u32_tensor(tc.table_arrays(freq), "cpu")),
+            tc.u32_tensor(tc.fused_table_arrays(freq), "cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,k", [(8, 16), (32, 1024), (128, 512),
+                                     (1024, 4096)])
+def test_rans_kernels_worst_case_and_empty_payload(cuda, lanes, k):
+    """The densest payload (the widest steps K2's shared window sees),
+    zero-length lanes, and an empty payload, in one grouped launch of each
+    kernel."""
+    worst, w_table = _worst_case(lanes, k, seed=lanes + k)
+    quiet, q_table = _quiet_case(lanes, 16)
+    enc = _check_encode(cuda, [worst, quiet])
+    assert enc[0][2].numel() > 0.7 * int(worst.lens.sum())
+    assert enc[1][2].numel() == 0
+    got = _check_decode(cuda, _decode_planes(enc, [worst, quiet],
+                                             [w_table, q_table]))
+    for (g_syms, g_ok), p in zip(got, (worst, quiet)):
+        torch.testing.assert_close(g_syms.cpu(), p.syms, rtol=0, atol=0)
+        assert bool((g_ok == 1).all())
+
+
+@pytest.mark.cuda
+def test_rans_grouped_launch_equals_per_plane(cuda):
+    """One grouped launch of K1a, K1b and K2 over planes of different lane
+    counts, chunk lengths and codings equals the plain version per plane,
+    and counts one launch per pass."""
+    from fpv_tpu_torch.utils import kernels
+
+    shapes = [(2 * 256 * LANES + 700, 256, False, LANES),
+              (6144, 1024, True, 8), (512 * 128 + 100, 512, True, 128),
+              (2048 * 32 - 77, 2048, False, 32)]
+    planes, tables = [], []
+    for n, k, ctx, lanes in shapes:
+        syms, lens, fc, table = _case(n, k, ctx, seed=n % 89, lanes=lanes)
+        planes.append(tc.EncodePlane(syms, lens, fc,
+                                     CTX_PROB_BITS if ctx else 12, ctx))
+        tables.append(table)
+    kernels.reset_launches()
+    enc = _check_encode(cuda, planes)
+    got = _check_decode(cuda, _decode_planes(enc, planes, tables))
+    for (g_syms, _ok), p in zip(got, planes):
+        torch.testing.assert_close(g_syms.cpu(), p.syms, rtol=0, atol=0)
+    assert (kernels.LAUNCHES["rans_encode_chain"],
+            kernels.LAUNCHES["rans_encode_place"],
+            kernels.LAUNCHES["rans_decode"]) == (1, 1, 1)
+
+
+@pytest.mark.cuda
+def test_rans_wrappers_refuse_what_the_kernels_cannot_take(cuda):
+    """K1a needs chunks of at least 16 steps (its symbol rows run 16 steps
+    ahead); K2 needs a staged payload, and says so rather than copying."""
+    syms, lens, fc, table = _case(8 * 8, 8, False, seed=1, lanes=8)
+    with pytest.raises(ValueError, match="chunk_len >= 16"):
+        tc.rans_encode_chain([tc.EncodePlane(syms.to(cuda), lens.to(cuda),
+                                             fc.to(cuda))])
+    syms, lens, fc, table = _case(2 * 16 * 8 + 5, 16, False, seed=2, lanes=8)
+    plane = tc.EncodePlane(syms, lens, fc)
+    enc = _check_encode(cuda, [plane])
+    dec = _on_card(_decode_planes(enc, [plane], [table])[0], cuda)
+    odd = torch.zeros(dec.payload.numel() + 1, dtype=torch.int16,
+                      device=cuda)[1:]
+    odd.copy_(dec.payload)
+    with pytest.raises(ValueError, match="staged_payload"):
+        tc.rans_decode_grouped([dec._replace(payload=odd)])
+    g_syms, _ok = tc.rans_decode_grouped(
+        [dec._replace(payload=tc.staged_payload(odd))])[0]
+    torch.testing.assert_close(g_syms.cpu(), syms, rtol=0, atol=0)
 
 
 @pytest.mark.cuda

@@ -176,18 +176,21 @@ def test_decode_frame_equals_jax_decode(files, wide_file, name):
 
 def test_decode_frame_reads_only_covering_blocks(wide_file, monkeypatch):
     """Random access on the wide file decodes at most three blocks per
-    plane, not the batch's ten."""
+    plane, not the batch's ten, and decodes the frame's high and low
+    blocks in one grouped call."""
     seen = []
-    real = tpc.decode_blocks
+    real = tpc.decode_blocks_grouped
 
-    def spy(stream, device, b0, b1):
-        seen.append((b0, b1))
-        return real(stream, device, b0, b1)
+    def spy(jobs, device):
+        seen.append([(name, b0, b1) for name, _st, b0, b1 in jobs])
+        return real(jobs, device)
 
-    monkeypatch.setattr(tpc, "decode_blocks", spy)
+    monkeypatch.setattr(tpc, "decode_blocks_grouped", spy)
     r = fpv_tpu_torch.FpvtReader(wide_file[0], device="cpu")
+    seen.clear()  # the delta section's planes
     np.testing.assert_array_equal(r.decode_frame(1), wide_file[1][1])
-    assert seen and all(b1 - b0 <= 2 for b0, b1 in seen)
+    assert seen and all(b1 - b0 <= 2 for call in seen for _n, b0, b1 in call)
+    assert all([n for n, _b0, _b1 in call] == ["high", "low"] for call in seen)
 
 
 @pytest.mark.parametrize("name", ["drift-prev", "plasma-ctx16", "tiny-3x3",

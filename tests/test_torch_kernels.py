@@ -234,3 +234,145 @@ def test_plain_cg2d_decode_matches_scan_oracle(shape):
     got = tpredict.cg2d_decode(torch.from_numpy(res)).numpy()
     np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(got, plane)
+
+
+# K1's two passes: lanes 8 to 1024, chunks 16 to 4096 (one to eight
+# segments), with zero-length pad lanes where the stream ends mid-block
+PASS_CASES = [
+    pytest.param(16, 3 * 16 * 8 + 5, False, 8, id="lanes8-order0-k16"),
+    pytest.param(4096, 4096 * 32 - 100, True, 32, id="lanes32-ctx16-k4096"),
+    pytest.param(512, 2 * 512 * 128 + 77, False, 128,
+                 id="lanes128-order0-k512"),
+    pytest.param(64, 2 * 64 * 512 - 3, True, 512, id="lanes512-ctx16-k64"),
+    pytest.param(4096, 4096 * LANES - 5000, False, LANES,
+                 id="lanes1024-order0-k4096"),
+    pytest.param(16, 16 * LANES + 9, True, LANES, id="lanes1024-ctx16-k16"),
+]
+
+
+@pytest.mark.parametrize("k,n,ctx,lanes", PASS_CASES)
+def test_plain_rans_passes_match_numpy_oracle(k, n, ctx, lanes):
+    """rans_encode_chain_ref then rans_place_ref (K1a's and K1b's plain
+    versions) equal rans_encode_ref and the rans_numpy oracle bit for bit;
+    the ballots carry exactly the emitted words."""
+    syms, lens = _block_syms(n, k, seed=k + lanes + ctx, ctx=ctx,
+                             lanes=lanes)
+    _freq, (st, cnt, pay), fc = _oracle_encode(syms, lens, ctx)
+    t_syms = torch.from_numpy(syms)
+    t_lens = torch.from_numpy(lens.reshape(-1, lanes))
+    t_fc = torch.from_numpy(fc.astype(np.uint32).view(np.int32))
+    pb = CTX_PROB_BITS if ctx else 12
+    states, words, ballots, counts = tc.rans_encode_chain_ref(
+        t_syms, t_lens, t_fc, pb, ctx)
+    assert ballots.shape == (syms.shape[0], k, -(-lanes // 32))
+    payload = tc.rans_place_ref(words, ballots)
+    np.testing.assert_array_equal(states.numpy().view(np.uint32).reshape(-1),
+                                  st)
+    np.testing.assert_array_equal(counts.numpy(), cnt)
+    np.testing.assert_array_equal(payload.numpy().view(np.uint16), pay)
+    assert int(counts.sum()) == sum(bin(b).count("1") for b in
+                                    ballots.numpy().view(np.uint32).ravel())
+    for got, want in zip((states, counts, payload),
+                         tc.rans_encode_ref(t_syms, t_lens, t_fc, pb, ctx)):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_encode_reciprocal_is_exact():
+    """K1a's reciprocal division: for every frequency of both alphabets
+    (1..4096; ctx16 uses 1..128), (x * rcp) >> (32 + shift) == x // f at
+    the boundary values and at 10^4 seeded x < 2^31 (x - 1 for f = 1, which
+    the kernel's bias makes up for)."""
+    rng = np.random.default_rng(11)
+    seeded = rng.integers(0, 1 << 31, 10_000, dtype=np.uint64)
+    top = np.uint64((1 << 31) - 1)
+    f_all = np.arange(1, 4097, dtype=np.uint64)
+    rcp, shift = tc.encode_reciprocal(f_all)
+    for f, r, s in zip(f_all, rcp.astype(np.uint64), shift.astype(np.uint64)):
+        mult = top // f * f
+        edges = np.array([1, 2, f - 1, f, f + 1, 2 * f - 1, 2 * f, 1 << 15,
+                          (1 << 19) - 1, 1 << 19, (1 << 24) - 1, 1 << 24,
+                          mult - 1, mult, top - 1, top], dtype=np.uint64)
+        x = np.concatenate([seeded, edges[edges >= 1]])
+        q = (x * r) >> (np.uint64(32) + s)
+        want = x // f if f > 1 else x - np.uint64(1)
+        np.testing.assert_array_equal(q, want, err_msg=f"f={f}")
+
+
+def test_grouped_wrappers_on_cpu_equal_per_plane_calls():
+    """rans_encode_grouped / rans_decode_grouped on the CPU run the plain
+    versions plane by plane: the same results as the plain versions called
+    per plane, for planes of different chunk lengths, lane counts, codings
+    and zero-length lanes."""
+    shapes = [(256, 2 * 256 * LANES + 700, False, LANES),
+              (128, 6144 - 5, True, 8), (64, 3 * 64 * 512 - 9, True, 512)]
+    planes, tables = [], []
+    for k, n, ctx, lanes in shapes:
+        syms, lens = _block_syms(n, k, seed=n % 13, ctx=ctx, lanes=lanes)
+        freq, _enc, fc = _oracle_encode(syms, lens, ctx)
+        planes.append(tc.EncodePlane(
+            torch.from_numpy(syms), torch.from_numpy(lens.reshape(-1, lanes)),
+            torch.from_numpy(fc.astype(np.uint32).view(np.int32)),
+            CTX_PROB_BITS if ctx else 12, ctx))
+        tables.append(tc.ctx_fused_table_arrays(freq) if ctx
+                      else tc.fused_table_arrays(freq))
+    grouped = tc.rans_encode_grouped(planes)
+    dec = []
+    for p, table, got in zip(planes, tables, grouped):
+        for g, w in zip(got, tc.rans_encode_ref(*p)):
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
+        states, counts, payload = got
+        starts = torch.cumsum(counts.to(torch.int64), 0) - counts
+        dec.append(tc.DecodePlane(
+            counts, starts, states, p.lens,
+            torch.from_numpy(table.view(np.int32)), payload,
+            p.syms.shape[1], p.prob_bits, p.ctx_mode))
+    for p, d, (g_syms, g_ok) in zip(planes, dec,
+                                    tc.rans_decode_grouped(dec)):
+        w_syms, w_ok = tc.rans_decode_ref(*d)
+        np.testing.assert_array_equal(g_syms.numpy(), w_syms.numpy())
+        np.testing.assert_array_equal(g_ok.numpy(), w_ok.numpy())
+        np.testing.assert_array_equal(g_syms.numpy(), p.syms.numpy())
+
+
+@pytest.mark.parametrize("wrapper", ["encode_chain", "encode_place",
+                                     "decode"])
+def test_grouped_wrappers_refuse_planes_on_two_devices(wrapper):
+    """A grouped call whose planes lie on different devices raises instead
+    of running the plain version on the second plane's device (a meta
+    tensor stands in for a card's)."""
+    syms, lens = _block_syms(300, 16, seed=3, ctx=False, lanes=8)
+    plane = tc.EncodePlane(torch.from_numpy(syms),
+                           torch.from_numpy(lens.reshape(-1, 8)),
+                           torch.zeros(256, dtype=torch.int32))
+    chain = tc.rans_encode_chain([plane])[0]
+    states, counts = chain[0], chain[3]
+    dec = tc.DecodePlane(counts, torch.cumsum(counts.to(torch.int64), 0),
+                         states, plane.lens,
+                         torch.zeros(4096, dtype=torch.int32),
+                         torch.zeros(0, dtype=torch.int16), 16)
+
+    def meta(p):
+        return type(p)(*(a.to("meta") if isinstance(a, torch.Tensor) else a
+                         for a in p))
+
+    calls = {"encode_chain": (tc.rans_encode_chain, plane),
+             "encode_place": (tc.rans_encode_place, tuple(chain[1:])),
+             "decode": (tc.rans_decode_grouped, dec)}
+    fn, first = calls[wrapper]
+    second = (tuple(a.to("meta") for a in first) if wrapper == "encode_place"
+              else meta(first))
+    with pytest.raises(ValueError, match="one device"):
+        fn([first, second])
+
+
+def test_staged_payload_pads_and_aligns():
+    """staged_payload returns a payload already staged as is, else the same
+    words at a 16-byte aligned start, readable to a multiple of 1024 words;
+    an empty payload gets a buffer too."""
+    buf = torch.arange(3000, dtype=torch.int16)
+    for pay in (buf[1:2500], buf[8:8], torch.zeros(0, dtype=torch.int16)):
+        staged = tc.staged_payload(pay)
+        assert tc.is_staged(staged)
+        torch.testing.assert_close(staged, pay, rtol=0, atol=0)
+    padded = torch.zeros(2 * tc.PAYLOAD_PAD, dtype=torch.int16)[:1500]
+    assert tc.is_staged(padded) and tc.staged_payload(padded) is padded

@@ -329,3 +329,64 @@ def test_encode_plane_batch_wide_ctx16_matches_jax_device_route(monkeypatch):
     got = tpc.encode_plane_batch(_t(plane), None, 64, coding=1, lanes="wide")
     assert got.lanes == 1024 and got.coding == 1
     _stream_fields_equal(got, ref)
+
+
+def test_grouped_plane_coding_equals_per_plane():
+    """code_planes on several plane batches (order-0 and ctx16 at different
+    chunk lengths and lane counts, noise that stores raw) equals one call
+    per plane, and decode_plane_ranges on those streams plus a constant
+    one equals decode_plane_batch per stream."""
+    jobs = []
+    for plane, k, lanes, coding in (
+        (_resid_plane((3, 40, 56), 1, 3), 1024, 8, 0),
+        (_resid_plane((3, 40, 56), 3, 20) & 0xF0, 256, 1024, 1),
+        (_planes(seed=4, shape=(2, 48, 48)), 16, 1024, 0),
+    ):
+        flat = _t(plane.reshape(plane.shape[0], -1))
+        syms, lens, fc, freq = tpc.plane_blocks(flat, k, lanes, coding)
+        jobs.append(tpc.PlaneJob(flat, syms, lens, fc, freq, coding))
+    grouped = tpc.code_planes(jobs)
+    assert [st.coding for st in grouped] == [0, 1, 3]
+    for job, got in zip(jobs, grouped):
+        _stream_fields_equal(got, tpc.code_planes([job])[0])
+    streams = grouped + [tpc.const_plane_stream(2, 100, 64, 9)]
+    requests = [(f"p{i}", st, 5, st.nframes * st.plane_size - 3)
+                for i, st in enumerate(streams)]
+    for (_n, st, lo, hi), got in zip(
+            requests, tpc.decode_plane_ranges(requests, "cpu")):
+        _eq(got, tpc.decode_plane_batch(st, "cpu").reshape(-1)[lo:hi])
+    for job, st in zip(jobs, grouped):
+        _eq(tpc.decode_plane_batch(st, "cpu"), job.plane)
+
+
+def test_grouped_decode_names_the_failing_plane():
+    plane = _t(_resid_plane((2, 40, 56), 5, 3).reshape(2, -1))
+    good = tpc.encode_plane_batch(plane, None, 64, lanes=1024)
+    bad = tpc.encode_plane_batch(plane, None, 64, lanes=1024)
+    bad.payload = bad.payload.copy()
+    bad.payload[len(bad.payload) // 2] ^= 0x5A5A
+    with pytest.raises(ValueError, match=r"integrity.*\(low plane\)"):
+        tpc.decode_plane_ranges([("high", good, 0, 10), ("low", bad, 0, 10)],
+                                "cpu")
+
+
+def test_encode_model_step_float32_cost_sums():
+    """The decision costs' sums pass 2^24 on 4096^2 frames: JAX sums them in
+    float32, the port exactly in int64.  On two frames of 16-bit noise
+    (shift 0) every per-frame decision must still agree."""
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 1 << 16, (3, 4096, 4096), dtype=np.uint16)
+    delta, imgs = frames[0], frames[1:]
+    dh, dl, _nz = jplanes.split_planes(delta[None], 0, False)
+    ref = jcodec.encode_model_step(
+        jnp.asarray(imgs), dh[0], dl[0], shift=0, big_endian=False,
+        use_delta_frame=True, low_ctx=False, allow_prev=True,
+    )
+    high = _t(imgs.view(np.int16)).to(torch.int32) & 0xFFFF
+    got = tcodec.encode_model_step(high, _t(dh[0]), _t(dl[0]), 0, False,
+                                   True, False, True)
+    sums = tcodec._residual_cost(tplanes.split_planes(high, 0, False)[0])
+    assert float(sums.min()) > 1 << 24
+    for name in ("use_delta", "use_prev", "spatial", "pv_spatial",
+                 "pv_use_delta"):
+        _eq(got[name], ref[name], name)
