@@ -11,10 +11,11 @@
    median): per plane, and as the main path launches them, one batch's
    planes in one grouped launch, with the bound (the function's bytes at
    3.35 TB/s; K1's split between its two passes) and the share of it
-   reached; K3 also on a batch of
-   previews.  K1/K2 also at the narrow lane counts the small-file paths
-   use (8 lanes x 1024 steps, the golden fixtures' batch planes; 128
-   lanes x 32768 steps, the narrow maximum).
+   reached; K3 at each shape the main path launches it (one frame, a
+   batch of frames, a batch of previews) and on the tallest frame, with
+   ns per anti-diagonal.  K1/K2 also at the narrow lane counts the
+   small-file paths use (8 lanes x 1024 steps, the golden fixtures' batch
+   planes; 128 lanes x 32768 steps, the narrow maximum).
 4. Drives the main path: ``encode_file_fpvt`` -> FPVT bytes ->
    ``decode_file_fpvt`` on the bench corpus (128 x 1024 x 1024 12-bit
    plasma frames, shift 4, 32 frames per batch) on the card, checks the
@@ -348,15 +349,19 @@ def check_rans_grouped(cases, refs, enc_idx, dec_idx) -> dict:
 
 
 def check_cg2d(high: torch.Tensor, preview: torch.Tensor, dev, results):
-    """K3 against its plain version on a batch of real frames, on a batch
-    of previews (the preview decode's launch) and on a tall frame; its
-    bound is 1 byte in and 1 byte out per pixel at 3.35 TB/s."""
+    """K3 against its plain version at the shapes the main path launches:
+    one real frame (the delta section's launch), a batch of real frames (a
+    batch whose frames pick CG2D), a batch of previews (the preview
+    decode's launch), and a tall frame (64 row groups); its bound is 1
+    byte in and 1 byte out per pixel at 3.35 TB/s, its chain H + W - 1
+    dependent steps (``ns_per_diagonal``)."""
     rng = np.random.default_rng(0)
     tall = torch.from_numpy(
         rng.integers(0, 256, TALL, np.int64).astype(np.uint8)
     ).to(dev)
     for name, plane, plain_reps in (
-        (str(list(high[:16].shape)), high[:16].contiguous(), 2),
+        (str(list(high[:1].shape)), high[:1].contiguous(), 2),
+        (str(list(high.shape)), high.contiguous(), 2),
         (str(list(preview.shape)), preview.contiguous(), 2),
         (str(list(TALL)), tall, 0),
     ):
@@ -382,6 +387,7 @@ def check_cg2d(high: torch.Tensor, preview: torch.Tensor, dev, results):
                    bound_ms=2 * plane.numel() / HBM_BYTES_PER_MS,
                    max_abs_err=err)
         row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["ns_per_diagonal"] = row["ms"] * 1e6 / (sum(plane.shape[1:]) - 1)
         print("cg2d", json.dumps(row), flush=True)
         results.append(row)
 
@@ -679,6 +685,7 @@ def main() -> None:
              max_abs_err=max(r["max_abs_err"] for r in cg_rows),
              ms=cg_rows[0]["ms"], plain_ms=cg_rows[0]["plain_ms"],
              bound_ms=cg_rows[0]["bound_ms"], bound_by="bytes",
+             bound_share=cg_rows[0]["bound_share"],
              library_ms=None, shape=cg_rows[0]["case"], cases=cg_rows),
     ]}
     print(json.dumps(kernels_line), flush=True)

@@ -50,25 +50,33 @@ def up_decode(res: torch.Tensor) -> torch.Tensor:
     return (torch.cumsum(res, dim=1) & 0xFF).to(torch.uint8)
 
 
-def cg2d_decode_ref(res: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch K3: wavefront over anti-diagonals d = y + x, each step
-    a gather/compute/scatter of the diagonal's pixels across the batch."""
+def cg2d_decode_ref(res: torch.Tensor, group_rows: int = 1024) -> torch.Tensor:
+    """Plain PyTorch K3, on the kernel's schedule: row groups of
+    ``group_rows`` rows in order; at step t of a group, row i computes
+    pixel (i, t - i), one vector op over the group's rows for the whole
+    batch.  w is the row's previous output, n the previous output of the
+    row above (the group's first row reads the row above the group from
+    the output), nw the previous step's n."""
     b, h, w = res.shape
-    dev = res.device
-    flat_res = res.reshape(b, h * w)
-    out = torch.zeros_like(flat_res)
-    for d in range(h + w - 1):
-        y = torch.arange(max(0, d - w + 1), min(h - 1, d) + 1, device=dev)
-        x = d - y
-        i = y * w + x
-        top = y > 0
-        n = out[:, torch.where(top, i - w, i)]
-        wv = out[:, torch.where(x > 0, i - 1, i)]
-        nw = out[:, torch.where(top & (x > 0), i - w - 1, i)]
-        pred = torch.where(x == 0, n, clamped_gradient(n, wv, nw))
-        pred = torch.where(top, pred, torch.zeros_like(pred))
-        out[:, i] = flat_res[:, i] + pred
-    return out.reshape(b, h, w)
+    out = torch.empty_like(res)
+    for y0 in range(0, h, group_rows):
+        rows = min(group_rows, h - y0)
+        i = torch.arange(rows, device=res.device)
+        r = res[:, y0 : y0 + rows]
+        north = out[:, y0 - 1] if y0 else torch.zeros_like(res[:, 0])
+        top = (i == 0) & (y0 == 0)  # row 0: n = 0, stored verbatim
+        wv = torch.zeros_like(r[:, :, 0])
+        nw = wv
+        for t in range(rows + w - 1):
+            x = t - i
+            xc = x.clamp(0, w - 1)
+            n = torch.cat([north[:, xc[:1]], wv[:, :-1]], dim=1)
+            pred = torch.where((x == 0) | top, n, clamped_gradient(n, wv, nw))
+            wv = r[:, i, xc] + pred
+            nw = n
+            on = (x >= 0) & (x < w)
+            out[:, y0 + i[on], x[on]] = wv[:, on]
+    return out
 
 
 def cg2d_decode(res: torch.Tensor) -> torch.Tensor:

@@ -242,19 +242,45 @@ def test_rans_wrappers_refuse_what_the_kernels_cannot_take(cuda):
 @pytest.mark.parametrize(
     "shape",
     [(2, 8, 8), (1, 1, 7), (1, 7, 1), (2, 130, 140), (3, 12, 260),
-     (5, 33, 20), (4, 256, 256), (1, 4096, 64)],
+     (5, 33, 20), (4, 256, 256), (1, 4096, 64),
+     # the main path's launches: the delta section, a batch's previews
+     (1, 1024, 1024), (32, 256, 256),
+     # K3's edges: more than one row group with a partial last group, H not
+     # a multiple of 32, one column, W >> H
+     (1, 1025, 5), (1, 2100, 40), (3, 45, 70), (1, 3000, 1), (2, 4, 5000)],
     ids=str,
 )
 def test_cg2d_kernel_matches_plain(cuda, shape):
+    """K3 equals its plain version (run on the card, on the kernel's
+    schedule) and the input, exactly.  Where H * W is not a multiple of
+    16, the frames of a batch start at different 16-byte alignments."""
     rng = np.random.default_rng(sum(shape))
     plane = torch.from_numpy(
         rng.integers(0, 256, shape, np.int64).astype(np.uint8)
-    )
+    ).to(cuda)
     res = tpredict.cg2d_encode(plane)
-    got = tpredict.cg2d_decode(res.to(cuda)).cpu()
+    got = tpredict.cg2d_decode(res)
     torch.testing.assert_close(got, tpredict.cg2d_decode_ref(res), rtol=0,
                                atol=0)
     torch.testing.assert_close(got, plane, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", [1, 7, 13])
+def test_cg2d_kernel_on_unaligned_input(cuda, start):
+    """K3 reads and writes 16-byte chunks at the rows' own alignment: a
+    residual that starts off a 16-byte boundary (a contiguous view into a
+    larger buffer) decodes the same."""
+    rng = np.random.default_rng(start)
+    plane = torch.from_numpy(
+        rng.integers(0, 256, (3, 37, 53), np.int64).astype(np.uint8)
+    ).to(cuda)
+    res = tpredict.cg2d_encode(plane)
+    buf = torch.zeros(res.numel() + 32, dtype=torch.uint8, device=cuda)
+    view = buf[start : start + res.numel()].view(res.shape)
+    view.copy_(res)
+    torch.testing.assert_close(tpredict.cg2d_decode(view), plane, rtol=0,
+                               atol=0)
 
 
 @pytest.mark.cuda

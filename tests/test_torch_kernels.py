@@ -236,6 +236,45 @@ def test_plain_cg2d_decode_matches_scan_oracle(shape):
     np.testing.assert_array_equal(got, plane)
 
 
+def _cg2d_case(shape):
+    """A seeded u8 plane and its JAX CG2D residual."""
+    rng = np.random.default_rng(sum(shape) + 1)
+    plane = rng.integers(0, 256, shape, np.int64).astype(np.uint8)
+    return plane, np.array(jpredict.cg2d_encode(plane))
+
+
+# K3's row groups: one row per group, groups that split a warp, one warp,
+# and the kernel's 1024; plus last groups that are partial
+GROUP_CASES = [
+    pytest.param(shape, g, id=f"{shape}-g{g}")
+    for g in (1, 3, 32, 1024) for shape in CG2D_SHAPES
+] + [pytest.param(shape, 32, id=f"{shape}-g32-partial")
+     for shape in ((1, 70, 9), (2, 65, 33))]
+
+
+@pytest.mark.parametrize("shape,group_rows", GROUP_CASES)
+def test_plain_cg2d_row_groups_match_scan_oracle(shape, group_rows):
+    """The plain version walks K3's schedule (row groups in order, one
+    step per anti-diagonal of a group); every group size gives the scan
+    oracle's result exactly."""
+    plane, res = _cg2d_case(shape)
+    ref = np.asarray(jpredict._cg2d_decode_impl(jnp.asarray(res)))
+    got = tpredict.cg2d_decode_ref(torch.from_numpy(res),
+                                   group_rows=group_rows).numpy()
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, plane)
+
+
+def test_plain_cg2d_matches_pallas_interpret():
+    """The plain version on row groups of 32 against the TPU wavefront
+    kernel in interpret mode, on a shape with a partial last group."""
+    plane, res = _cg2d_case((2, 40, 20))
+    ref = np.asarray(jpredict._cg2d_decode_pallas(res, interpret=True))
+    got = tpredict.cg2d_decode_ref(torch.from_numpy(res), group_rows=32)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(ref, plane)
+
+
 # K1's two passes: lanes 8 to 1024, chunks 16 to 4096 (one to eight
 # segments), with zero-length pad lanes where the stream ends mid-block
 PASS_CASES = [
