@@ -32,10 +32,23 @@
    full decode, every batch's previews against previews of the decoded
    frames (K3 runs on CG2D previews), and the streaming reader fed in
    1 MiB pieces.
-8. Prints a JSON line of the kernels, then the result line
+8. The serving hubs (``api/multistream.py``): the encode hub on two
+   camera streams (corpus frames 0-63 and 64-127, pushed interleaved),
+   each stream lossless and byte-equal to a single-threaded
+   ``FpvtWriter(narrow=False)``; the decode hub on the corpus file, 1
+   stream with previews and 2 streams, host frames, exact; the
+   device-resident replay (device frames, a shared upload cache, a
+   content_id) at 1, 2 and 4 streams, adding no cache entries after the
+   first; one ``hubs`` JSON line of their Mpix/s beside
+   ``decode_file_fpvt``'s on the same file, with the card's name and power
+   limit.  Launches per hub path are checked against the files' sections.
+9. Malformed input on the card: mutations and truncations of a small
+   1024-lane file that reach K2 and K3 decode or raise ValueError, then a
+   clean decode of the corpus file's batch 1 equals the full decode.
+10. Prints a JSON line of the kernels, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
-Each path (4, 5, 6, 7) is driven with the launch counts set to 0 just
+Each path (4-9) is driven with the launch counts set to 0 just
 before it and read just after; a kernel the path needs that it did not
 launch fails the run.  Any failure raises (non-zero exit) and prints no
 result line.
@@ -48,6 +61,7 @@ import json
 import os
 import pathlib
 import statistics
+import struct
 import subprocess
 import time
 
@@ -57,11 +71,13 @@ import torch
 from fpv_tpu_torch.api.fpvt_codec import (
     FpvtReader,
     FpvtStreamingReader,
+    FpvtWriter,
     decode_file_fpvt,
     encode_file_fpvt,
     encode_model_step,
     pv_chunk_len,
 )
+from fpv_tpu_torch.api.multistream import MultiStreamDecoder, MultiStreamEncoder
 from fpv_tpu_torch.entropy.plane_codec import (
     _hist_flat,
     _to_block_symbols,
@@ -78,7 +94,11 @@ from fpv_tpu_torch.entropy.tables_device import (
     normalize_freqs_device,
 )
 from fpv_tpu_torch.format import fpvt
-from fpv_tpu_torch.format.fpvt import F_SPATIAL_SHIFT
+from fpv_tpu_torch.format.fpvt import (
+    F_PV_SPATIAL_SHIFT,
+    F_SPATIAL_SHIFT,
+    SPATIAL_CG2D,
+)
 from fpv_tpu_torch.ops import predict, rans_cuda
 from fpv_tpu_torch.ops.planes import split_planes
 from fpv_tpu_torch.ops.preview import generate_preview
@@ -512,11 +532,14 @@ def check_streaming(data: bytes, out: np.ndarray, dev) -> None:
     print("streaming reader (1 MiB pieces): frames equal", flush=True)
 
 
-def check_grouped_launches(data: bytes, enc: dict, dec: dict) -> None:
-    """The main path groups its planes: the fused encode launches K1a and
-    K1b once per batch (the delta section codes its planes one by one),
-    and the decode launches K2 once per batch and once for the delta
-    section, each for its high and low planes together."""
+def expected_launches(data: bytes, previews: bool = False) -> dict:
+    """The launches a file's encode and whole-file decode take as the main
+    path groups its planes: K1a and K1b once per batch (high, low and
+    preview together) plus once per coded delta-section plane (the delta
+    section codes its planes one by one); K2 once per batch (high and low,
+    and with ``previews`` the preview, together) plus once for the delta
+    section; K3 once for the delta section and once per batch whose frames
+    (or, with ``previews``, previews) pick CG2D."""
     def with_coding(codings, *streams):
         return [s for s in streams if s is not None and s.coding in codings]
 
@@ -524,20 +547,258 @@ def check_grouped_launches(data: bytes, enc: dict, dec: dict) -> None:
     # coding); K2 decodes the rANS-coded ones
     k1, k2 = ((CODING_ORDER0, CODING_CTX16, CODING_RAW),
               (CODING_ORDER0, CODING_CTX16))
-    _dflags, dh, dl = fpvt.parse_delta_section(data, fpvt.HEADER_SIZE)
+    dflags, dh, dl = fpvt.parse_delta_section(data, fpvt.HEADER_SIZE)
     batches = [fpvt.parse_batch_section(data, off)
                for off, _n in fpvt.parse_footer(data)]
-    want_k1 = (sum(bool(with_coding(k1, b.high, b.low, b.preview))
-                   for b in batches) + len(with_coding(k1, dh, dl)))
-    want_k2 = (sum(bool(with_coding(k2, b.high, b.low)) for b in batches)
-               + bool(with_coding(k2, dh, dl)))
+
+    def cg2d(flags, shift):
+        return bool((((flags >> shift) & 3) == SPATIAL_CG2D).any())
+
+    return dict(
+        batches=len(batches),
+        k1=(sum(bool(with_coding(k1, b.high, b.low, b.preview))
+                for b in batches) + len(with_coding(k1, dh, dl))),
+        k2=(sum(bool(with_coding(k2, b.high, b.low,
+                                 b.preview if previews else None))
+                for b in batches) + bool(with_coding(k2, dh, dl))),
+        k3=(cg2d(np.array([dflags]), F_SPATIAL_SHIFT)
+            + sum(cg2d(b.frame_flags, F_SPATIAL_SHIFT)
+                  + (previews and cg2d(b.frame_flags, F_PV_SPATIAL_SHIFT))
+                  for b in batches)),
+    )
+
+
+def check_grouped_launches(data: bytes, enc: dict, dec: dict) -> None:
+    """The main path groups its planes (:func:`expected_launches`)."""
+    want = expected_launches(data)
     got = (enc["rans_encode_chain"], enc["rans_encode_place"],
            dec["rans_decode"])
-    if got != (want_k1, want_k1, want_k2):
-        raise AssertionError(f"grouped launches {got}, want "
-                             f"{(want_k1, want_k1, want_k2)}")
+    if got != (want["k1"], want["k1"], want["k2"]):
+        raise AssertionError(f"grouped launches {got}, want {want}")
     print("main path grouped launches", json.dumps(dict(
-        batches=len(batches), encode=enc, decode=dec)), flush=True)
+        batches=want["batches"], encode=enc, decode=dec)), flush=True)
+
+
+HUB_HALF = N_FRAMES // 2  # frames per camera stream in the encode hub
+REPLAY_STREAMS = (1, 2, 4)
+
+
+def hub_encode(frames: np.ndarray, dev) -> tuple[dict, float]:
+    """The encode hub on two camera streams, corpus frames 0-63 and
+    64-127, pushed interleaved with timestamps 0..63 -> (stream -> file
+    bytes, wall s)."""
+    halves = {"cam0": frames[:HUB_HALF], "cam1": frames[HUB_HALF:]}
+    out = {sid: [] for sid in halves}
+
+    def run():
+        hub = MultiStreamEncoder(
+            W, H, shift=SHIFT, frames_per_batch=FPB, chunk_log2=CHUNK_LOG2,
+            sink=lambda sid, d: out[sid].append(d), devices=[dev])
+        for sid, fr in halves.items():
+            hub.add_stream(sid, fr[0])
+        for i in range(HUB_HALF):
+            for sid, fr in halves.items():
+                hub.push_frame(sid, i, fr[i])
+        hub.close()
+
+    _none, wall_ms = timed_once(run)
+    return {sid: b"".join(parts) for sid, parts in out.items()}, wall_ms / 1e3
+
+
+def writer_encode(frames: np.ndarray, dev) -> bytes:
+    """One stream through a single-threaded ``FpvtWriter(narrow=False)``,
+    as the encode hub writes it."""
+    w = FpvtWriter(W, H, SHIFT, False, FPB, CHUNK_LOG2, device=dev,
+                   narrow=False)
+    parts = [w.init(frames[0])]
+    for s in range(0, len(frames), FPB):
+        parts.append(w.encode_batch(frames[s : s + FPB],
+                                    np.arange(s, min(s + FPB, len(frames)))))
+    return b"".join(parts + [w.finish()])
+
+
+def check_encode_hub(frames: np.ndarray, dev) -> dict:
+    """Each hub stream decodes losslessly, its bytes equal a single-threaded
+    writer's on the same frames, and K1a/K1b ran as the files say."""
+    (files, wall), launches = counted(
+        "encode hub", ("rans_encode_chain", "rans_encode_place"),
+        lambda: hub_encode(frames, dev))
+    want_k1 = 0
+    writer_s = 0.0
+    for i, (sid, data) in enumerate(files.items()):
+        half = frames[i * HUB_HALF : (i + 1) * HUB_HALF]
+        if not np.array_equal(decode_file_fpvt(data, device=dev),
+                              half << SHIFT):
+            raise AssertionError(f"encode hub stream {sid} is not lossless")
+        single, dt_ms = timed_once(lambda: writer_encode(half, dev))
+        writer_s += dt_ms / 1e3
+        if single != data:
+            raise AssertionError(f"encode hub stream {sid} != FpvtWriter")
+        want_k1 += expected_launches(data)["k1"]
+    got = (launches["rans_encode_chain"], launches["rans_encode_place"])
+    if got != (want_k1, want_k1):
+        raise AssertionError(f"encode hub K1 launches {got}, want {want_k1}")
+    mpix = frames.size / 1e6
+    return dict(encode_hub_2_streams_s=wall,
+                encode_hub_2_streams_mpix_s=mpix / wall,
+                writer_sequential_s=writer_s,
+                writer_sequential_mpix_s=mpix / writer_s,
+                encode_hub_bytes=[len(d) for d in files.values()])
+
+
+def hub_decode(data: bytes, nstreams: int, dev, keep: str,
+               content_id=None, **hub_kw) -> tuple[dict, float]:
+    """The decode hub with ``nstreams`` streams each fed ``data`` in 1 MiB
+    pieces, interleaved -> (stream -> what the sink got, wall s).  The sink
+    keeps every call (``keep="all"``) or, for device frames, the frame
+    count and the second call (the first batch after frame 0)."""
+    got = {f"s{i}": [] for i in range(nstreams)}
+    frames_seen = dict.fromkeys(got, 0)
+
+    def sink(sid, fr, ts, pv=None):
+        frames_seen[sid] += fr.shape[0]
+        if keep == "all" or len(got[sid]) < 2:
+            got[sid].append((fr, ts, pv))
+
+    def run():
+        hub = MultiStreamDecoder(sink=sink, devices=[dev], **hub_kw)
+        for sid in got:
+            hub.add_stream(sid, content_id=content_id)
+        for s in range(0, len(data), 1 << 20):
+            for sid in got:
+                hub.feed(sid, data[s : s + (1 << 20)])
+        hub.close()
+
+    _none, wall_ms = timed_once(run)
+    if set(frames_seen.values()) != {N_FRAMES}:
+        raise AssertionError(f"decode hub frames per stream {frames_seen}")
+    return got, wall_ms / 1e3
+
+
+def check_decode_hub(data: bytes, out: np.ndarray, dev) -> dict:
+    """The decode hub, host frames: 1 stream with previews, then 2 streams;
+    frames, timestamps and previews exact; K2 once per batch plus once per
+    delta section, per stream; K3 as the flags say (CG2D previews)."""
+    row = {}
+    ts_want = np.concatenate(
+        [np.full(1, -1, np.int64)]
+        + [fpvt.parse_batch_section(data, off).timestamps
+           for off, _n in fpvt.parse_footer(data)])
+    pv_want = torch.cat([generate_preview(torch.from_numpy(
+        (out[s : s + FPB] >> 8).astype(np.uint8)).to(dev))
+        for s in range(0, N_FRAMES, FPB)]).cpu().numpy()
+    for nstreams, previews in ((1, True), (2, False)):
+        need = ("rans_decode", "cg2d_decode")
+        (got, wall), launches = counted(
+            f"decode hub {nstreams} host", need,
+            lambda: hub_decode(data, nstreams, dev, "all",
+                               want_previews=previews))
+        for sid, calls in got.items():
+            if not np.array_equal(np.concatenate([c[0] for c in calls]), out):
+                raise AssertionError(f"decode hub stream {sid} frames differ")
+            if not np.array_equal(np.concatenate([c[1] for c in calls]),
+                                  ts_want):
+                raise AssertionError(f"decode hub stream {sid} timestamps")
+            if previews and not np.array_equal(
+                    np.concatenate([c[2] for c in calls]), pv_want):
+                raise AssertionError(f"decode hub stream {sid} previews")
+        del got
+        want = expected_launches(data, previews)
+        got_k = (launches["rans_decode"], launches["cg2d_decode"])
+        if got_k != (nstreams * want["k2"], nstreams * want["k3"]):
+            raise AssertionError(f"decode hub launches {got_k}, want "
+                                 f"{nstreams} x {want}")
+        key = f"decode_hub_{nstreams}_host" + ("_previews" if previews
+                                               else "")
+        row[key + "_s"] = wall
+        row[key + "_mpix_s"] = nstreams * out.size / 1e6 / wall
+        row[key + "_launches"] = launches
+    return row
+
+
+def check_replay(data: bytes, out: np.ndarray, dev) -> dict:
+    """The device-resident replay (bench.py's): device frames, one shared
+    upload cache, a content_id; a first 1-stream run stages the batches,
+    then 1, 2 and 4 streams run once each and add no cache entries.  The
+    sink gets CUDA tensors equal to the host decode (the first batch of
+    every stream)."""
+    cache: dict = {}
+    row = {}
+    nbatches = len(fpvt.parse_footer(data))
+    for i, nstreams in enumerate((1, *REPLAY_STREAMS)):
+        (got, wall), launches = counted(
+            f"replay {nstreams}" + (" (staging)" if i == 0 else ""),
+            ("rans_decode",),
+            lambda: hub_decode(data, nstreams, dev, "first", "corpus",
+                               device_frames=True, upload_cache=cache))
+        if len(cache) != nbatches:
+            raise AssertionError(f"upload cache holds {len(cache)} entries,"
+                                 f" want {nbatches}")
+        for sid, calls in got.items():
+            fr = calls[1][0]
+            if fr.device.type != dev.type or fr.dtype != torch.int32:
+                raise AssertionError(f"replay {sid}: {fr.device} {fr.dtype}")
+            if not np.array_equal(fr.cpu().numpy().astype(np.uint16),
+                                  out[1 : 1 + FPB]):
+                raise AssertionError(f"replay stream {sid} batch 0 differs")
+        if i:
+            row[f"replay_{nstreams}_s"] = wall
+            row[f"replay_{nstreams}_mpix_s"] = nstreams * out.size / 1e6 / wall
+            row[f"replay_{nstreams}_launches"] = launches
+        del got
+    cache.clear()
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_fuzz(data: bytes, out: np.ndarray, dev) -> dict:
+    """Single-byte mutations and truncations of a small wide file (some
+    forcing CG2D frames, so K3 runs on garbage residuals, and one a high
+    plane's count, so K2's check fails) decode or raise ValueError on the
+    card; then batch 1 of the main corpus file decodes equal to the full
+    decode, so the CUDA context survived."""
+    frames = testdata.plasma_frames(5, 128, 160, bits=BITS, seed=8)
+    wri = FpvtWriter(160, 128, SHIFT, False, 2, 4, device=dev,
+                     delta_is_frame0=True, narrow=False)
+    small = b"".join([wri.init(frames[0])]
+                     + [wri.encode_batch(frames[s : s + 2]) for s in (1, 3)]
+                     + [wri.finish()])
+    mutants = []
+    for off, n in fpvt.parse_footer(small):
+        for j in range(n):  # frame flags: spatial bits -> CG2D
+            m = bytearray(small)
+            m[off + 17 + j] = (m[off + 17 + j] & ~6) | (SPATIAL_CG2D << 1)
+            mutants.append(bytes(m))
+        pos = off + 17 + 9 * n  # the high plane stream
+        (nch,) = struct.unpack_from("<I", small, pos + 12)
+        m = bytearray(small)
+        struct.pack_into("<I", m, pos + 24 + 512 + 4 * nch, 5)
+        mutants.append(bytes(m))
+    rng = np.random.default_rng(11)
+    for _ in range(60):
+        m = bytearray(small)
+        m[int(rng.integers(0, len(m)))] ^= int(rng.integers(1, 256))
+        mutants.append(bytes(m))
+    mutants += [small[: int(c)] for c in rng.integers(0, len(small), 15)]
+    outcome = {"decoded": 0, "ValueError": 0}
+
+    def run():
+        for m in mutants:
+            try:
+                decode_file_fpvt(m, device=dev)
+                r = FpvtReader(m, device=dev)
+                for bi in range(r.num_batches):
+                    r.decode_batch_with_previews(bi)
+                outcome["decoded"] += 1
+            except ValueError:
+                outcome["ValueError"] += 1
+
+    _none, launches = counted("fuzz", ("rans_decode", "cg2d_decode"), run)
+    if not np.array_equal(FpvtReader(data, device=dev).decode_batch(1),
+                          out[1 + FPB : 1 + 2 * FPB]):
+        raise AssertionError("batch 1 after the fuzz != full decode")
+    return dict(mutants=len(mutants), **outcome, launches=launches,
+                clean_decode_after="equal")
 
 
 def main() -> None:
@@ -639,6 +900,17 @@ def main() -> None:
     print("previews", json.dumps(row), flush=True)
     counted("streaming", ("rans_decode",),
             lambda: check_streaming(data, out, dev))
+
+    # the serving hubs, each phase counted on its own
+    _none, dec_ms = timed_once(lambda: decode_file_fpvt(data, device=dev))
+    dec_s = dec_ms / 1e3
+    hubs = dict(card=card, frames=list(frames.shape), decode_file_fpvt_s=dec_s,
+                decode_file_fpvt_mpix_s=mpix / dec_s)
+    hubs.update(check_encode_hub(frames, dev))
+    hubs.update(check_decode_hub(data, out, dev))
+    hubs.update(check_replay(data, out, dev))
+    print("hubs", json.dumps(hubs), flush=True)
+    print("card fuzz", json.dumps(check_fuzz(data, out, dev)), flush=True)
     del out
 
     err = max(r["max_abs_err"] for r in rans_rows + [grouped])

@@ -25,6 +25,8 @@ files that arrive in pieces.
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import struct
 
 import numpy as np
@@ -44,6 +46,7 @@ from fpv_tpu_torch.entropy.plane_codec import (
     decode_plane_ranges,
     encode_plane_batch,
     lens_tensor,
+    upload,
 )
 from fpv_tpu_torch.entropy.tables_device import (
     encode_tables_ctx_device,
@@ -86,6 +89,7 @@ from fpv_tpu_torch.ops.rans_layout import (
     CODING_RAW,
     CTX_NIDX,
 )
+from fpv_tpu_torch.utils import kernels
 
 # Per-batch size ceiling: one plane batch must stay below 2^31 symbols, the
 # range of the kernels' int32 word offsets and counts.  Batches beyond it
@@ -430,7 +434,7 @@ class FpvtWriter:
         (F_USE_PREV, anchored every PREV_ANCHOR frames)."""
         if not 4 <= chunk_log2 <= 16:
             raise ValueError("chunk_log2 must be in [4, 16]")
-        self._device = torch.device(device)
+        self._device = resolve_device(device)
         self._narrow = narrow
         self._allow_prev = temporal_prev
         self.header = Header(
@@ -677,7 +681,7 @@ def _inverse_spatial(res: torch.Tensor, spatial: np.ndarray) -> torch.Tensor:
         if sel.size:
             if out is res:
                 out = res.clone()
-            idx = torch.from_numpy(sel).to(res.device)
+            idx = upload(sel, res.device)
             out[idx] = inverse(res[idx])
     return out
 
@@ -692,8 +696,7 @@ def _inverse_preview(
     use_delta = (flags & F_PV_USE_DELTA) != 0
     if use_delta.any():
         pv_delta = generate_preview(delta_high[None])
-        pv = _where3(torch.from_numpy(use_delta).to(pv.device),
-                     pv + pv_delta, pv)
+        pv = _where3(upload(use_delta, pv.device), pv + pv_delta, pv)
     return pv
 
 
@@ -729,7 +732,7 @@ def _apply_temporal(high, low, flags, delta_high, delta_low):
     use_delta = (flags & F_USE_DELTA) != 0
     use_prev = (flags & F_USE_PREV) != 0
     if not use_prev.any():
-        ud = torch.from_numpy(use_delta).to(high.device)
+        ud = upload(use_delta, high.device)
         return (
             _where3(ud, high + delta_high[None], high),
             _where3(ud, low + delta_low[None], low),
@@ -750,8 +753,23 @@ def _apply_temporal(high, low, flags, delta_high, delta_low):
 
 def _to_u16(high: torch.Tensor, low: torch.Tensor) -> np.ndarray:
     """(high, low) u8 planes -> host uint16 frames (downloaded as 16-bit
-    words)."""
+    words, waiting for the current stream)."""
     return to_int16(combine_planes(high, low)).cpu().numpy().view(np.uint16)
+
+
+def _download(tensors, copy_stream, done):
+    """Host copies of device ``tensors`` (None stays None), made on
+    ``copy_stream`` once the event ``done`` has passed, into pinned
+    memory; waits for ``copy_stream`` alone.  Without a stream (the CPU)
+    the tensors themselves."""
+    if copy_stream is None:
+        return list(tensors)
+    with torch.cuda.stream(copy_stream):
+        copy_stream.wait_event(done)
+        host = [None if t is None else t.to("cpu", non_blocking=True)
+                for t in tensors]
+    copy_stream.synchronize()
+    return host
 
 
 def _check_batch_size(pb: fpvt.ParsedBatch) -> None:
@@ -759,14 +777,62 @@ def _check_batch_size(pb: fpvt.ParsedBatch) -> None:
         raise ValueError("batch too large for the device codec (2^31 symbols)")
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device.  A CUDA device needs a card: without
+    one this raises rather than running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but PyTorch sees no "
+                           "CUDA device; pass device='cpu' for the CPU")
+    return dev
+
+
+def _section_key(section, header: Header) -> tuple:
+    """Upload-cache key of a batch section's bytes in a file of this
+    geometry."""
+    return ("sec", hashlib.blake2b(section, digest_size=16).digest(),
+            header.ysize, header.xsize, header.chunk_log2)
+
+
+@dataclasses.dataclass
+class _StagedBatch:
+    """A batch section's decode inputs on its device, as the upload cache
+    keeps them: the staged plane streams (high, low and preview, as the
+    section has them), the host frame flags and timestamps, the frame
+    count, and an event marking the end of the uploads (None on the
+    CPU)."""
+
+    planes: plane_codec.StagedRanges
+    flags: np.ndarray
+    timestamps: np.ndarray
+    b: int
+    device: torch.device
+    ready: object
+
+
 class FpvtReader:
     """Random-access FPVT reader: batches, single frames and previews
-    decode on ``device``."""
+    decode on ``device``.
 
-    def __init__(self, data: bytes, device="cuda") -> None:
-        self._open(data, device)
+    On a CUDA device the reader queues its uploads (from pinned memory),
+    kernels and elementwise work on an issue stream of its own and copies
+    batches to the host on a second stream, so a batch's download can
+    overlap the next batch's upload and decode
+    (:meth:`_decode_parsed_batch_issue`)."""
+
+    def __init__(
+        self, data: bytes, device="cuda", upload_cache: dict | None = None
+    ) -> None:
+        """``upload_cache``: optional dict, caller-owned and caller-bounded
+        (its entries hold device memory), staging batch uploads on the
+        device by the section bytes' hash; share one dict across readers
+        to stage a replayed or multicast file once."""
+        self._open(data, device, upload_cache)
         self._data = bytes(data)
         self._batches = fpvt.parse_footer(self._data)
+        # the footer's counts size the frame index: hold them to their
+        # sections first (a crafted count would claim millions of frames)
+        fpvt.check_footer_counts(self._data, self._batches)
         self._frame_to_batch: list[tuple[int, int]] = []
         if self.header.delta_is_frame0:
             # frame 0 is the delta frame itself (HDR_F_DELTA_IS_FRAME0)
@@ -774,24 +840,34 @@ class FpvtReader:
         for bi, (_off, n) in enumerate(self._batches):
             self._frame_to_batch.extend((bi, j) for j in range(n))
 
-    def _open(self, data: bytes, device) -> None:
+    def _open(self, data: bytes, device, upload_cache=None) -> None:
         """Parse the header and decode the delta section (the part of the
         reader the streaming reader shares)."""
-        self._device = torch.device(device)
+        self._device = resolve_device(device)
+        cuda = self._device.type == "cuda"
+        self._stream = torch.cuda.Stream(self._device) if cuda else None
+        self._copy_stream = torch.cuda.Stream(self._device) if cuda else None
+        self._upload_cache = upload_cache
         self.header = Header.parse(data)
         h, w = self.header.ysize, self.header.xsize
         dflags, dh_stream, dl_stream = fpvt.parse_delta_section(
             data, fpvt.HEADER_SIZE, plane_size=h * w
         )
-        self._delta_high, self._delta_low = _decode_delta_planes(
-            dflags, dh_stream, dl_stream, h, w, self._device
-        )
+        with self._on_stream():
+            self._delta_high, self._delta_low = _decode_delta_planes(
+                dflags, dh_stream, dl_stream, h, w, self._device
+            )
         # the last whole batch decoded: (batch index, frames)
         self._cache: tuple[int, np.ndarray] | None = None
         # the last frame a prev chain reconstructed: (batch index, frame
         # index, high, low), so sequential decode_frame calls continue the
         # chain instead of re-decoding its prefix
         self._chain_cache: tuple | None = None
+
+    def _on_stream(self):
+        """Context queuing this reader's device work on its issue stream
+        (no-op on the CPU)."""
+        return torch.cuda.stream(self._stream)
 
     def _parse_batch(self, off: int) -> fpvt.ParsedBatch:
         """parse_batch_section with this file's frame geometry enforced
@@ -810,7 +886,8 @@ class FpvtReader:
     def delta_frame(self) -> np.ndarray:
         """The file's delta frame (left-aligned uint16 [H, W]), the frame
         every batch's delta prediction references."""
-        return _to_u16(self._delta_high[None], self._delta_low[None])[0]
+        with self._on_stream():
+            return _to_u16(self._delta_high[None], self._delta_low[None])[0]
 
     @property
     def numframes(self) -> int:
@@ -829,25 +906,179 @@ class FpvtReader:
         self, pb: fpvt.ParsedBatch, b: int, want_previews: bool = False
     ) -> tuple[np.ndarray, np.ndarray | None]:
         """Decode a parsed batch -> (frames u16 [B, H, W], previews u8
-        [B, H//4, W//4] or None).  Every plane stream decodes by its own
-        coding and geometry (wide, narrow, const or raw)."""
+        [B, H//4, W//4] or None): issue, then finalize."""
+        return self._decode_parsed_batch_issue(pb, b, want_previews)()
+
+    def _decode_parsed_batch_issue(
+        self, pb: fpvt.ParsedBatch, b: int, want_previews: bool = False,
+        device_frames: bool = False, section_key=None,
+    ):
+        """Issue a parsed batch's decode, returning ``finalize() ->
+        (frames, previews or None)``.
+
+        The issue step queues all the batch's device work and waits for
+        none of it: the uploads (:func:`plane_codec.stage_plane_ranges`),
+        one K2 launch for the high and low planes (and the preview plane
+        with ``want_previews``), the inverse predictions (K3 on CG2D
+        frames and previews), the temporal add and the plane combine.
+        Every plane stream decodes by its own coding and geometry (wide,
+        narrow, const or raw).  ``finalize`` waits for that work alone, on
+        the reader's copy stream: it reads the integrity checks (a failed
+        one raises ValueError naming the plane) and copies frames and
+        previews into pinned host memory -> u16 [B, H, W] and u8
+        [B, H//4, W//4] numpy arrays (a new buffer per batch).
+
+        ``device_frames``: finalize reads only the integrity checks and
+        returns the device tensors: frames int32 [B, H, W] holding the
+        u16 values (what ``combine_planes`` gives; torch has no full
+        uint16 support), previews uint8 [B, H//4, W//4].  They are
+        recorded on the finalizing thread's current stream, so that thread
+        may use and free them there.
+
+        ``section_key``: with an upload cache, the key the staged inputs
+        (with the batch's flags, timestamps and frame count) are kept
+        under; a later :meth:`_staged_issue` of that key skips the parse
+        and the uploads.  An entry staged on another device is replaced."""
+        staged = self._cached(section_key)
+        if staged is None:
+            staged = self._stage(pb, b)
+            if self._upload_cache is not None and section_key is not None:
+                self._upload_cache[section_key] = staged
+        return self._dispatch(staged, want_previews, device_frames)
+
+    def _cached(self, key) -> _StagedBatch | None:
+        """The upload cache's batch under ``key`` if it lies on this
+        reader's device."""
+        if self._upload_cache is None or key is None:
+            return None
+        staged = self._upload_cache.get(key)
+        if staged is None or staged.device != self._device:
+            return None
+        return staged
+
+    def _staged_issue(self, section_key, want_previews: bool,
+                      device_frames: bool):
+        """Issue a batch decode straight from the upload cache, without
+        parsing its section -> ``(finalize, b, timestamps)``, or None when
+        ``section_key`` is not staged.  The delta planes and streams are
+        this reader's, so streams with different delta frames share only
+        the uploaded batch inputs."""
+        staged = self._cached(section_key)
+        if staged is None:
+            return None
+        fin = self._dispatch(staged, want_previews, device_frames)
+        return fin, staged.b, staged.timestamps
+
+    def _stage(self, pb: fpvt.ParsedBatch, b: int) -> _StagedBatch:
+        """Upload a parsed batch's plane streams (the preview's too)."""
         _check_batch_size(pb)
+        requests = [(name, st, 0, st.nframes * st.plane_size)
+                    for name, st in (("high", pb.high), ("low", pb.low),
+                                     ("preview", pb.preview))
+                    if st is not None]
+        with self._on_stream():
+            planes = plane_codec.stage_plane_ranges(requests, self._device)
+            ready = None
+            if self._stream is not None:
+                ready = torch.cuda.Event()
+                ready.record(self._stream)
+        return _StagedBatch(planes, pb.frame_flags, pb.timestamps, b,
+                            self._device, ready)
+
+    def _dispatch(self, st: _StagedBatch, want_previews: bool,
+                  device_frames: bool):
+        """Queue a staged batch's decode (see
+        :meth:`_decode_parsed_batch_issue`) -> finalize."""
         h, w = self.header.ysize, self.header.xsize
-        dev = self._device
-        high, low = _decode_high_low(pb.high, pb.low, dev)
-        high, low = high.reshape(b, h, w), low.reshape(b, h, w)
-        flags = pb.frame_flags
-        high = _inverse_spatial(high, (flags >> F_SPATIAL_SHIFT) & 3)
-        high, low = _apply_temporal(
-            high, low, flags, self._delta_high, self._delta_low
-        )
-        pv = self._decode_previews_parsed(pb, b) if want_previews else None
-        return _to_u16(high, low), pv
+        b, flags = st.b, st.flags
+        with self._on_stream():
+            if st.ready is not None:
+                # the inputs may have been staged on another reader's stream
+                self._stream.wait_event(st.ready)
+            names = [n for n in st.planes.names
+                     if want_previews or n != "preview"]
+            outs, coded, ok = plane_codec.launch_plane_ranges(st.planes,
+                                                              names)
+            high = outs["high"].reshape(b, h, w)
+            low = (outs["low"].reshape(b, h, w) if "low" in outs
+                   else torch.zeros_like(high))
+            high = _inverse_spatial(high, (flags >> F_SPATIAL_SHIFT) & 3)
+            high, low = _apply_temporal(
+                high, low, flags, self._delta_high, self._delta_low
+            )
+            pv = None
+            if want_previews:
+                pv = self._previews(outs.get("preview"), flags, b)
+                if device_frames and "preview" in outs and (
+                        pv.data_ptr() == outs["preview"].data_ptr()):
+                    pv = pv.clone()  # never hand out the cache's own bytes
+            return self._finish(combine_planes(high, low), pv, coded, ok,
+                                device_frames, keep=st)
+
+    def _finish(self, frames, pv, coded, ok, device_frames: bool,
+                keep=None):
+        """``finalize`` of work queued on the issue stream: ``frames``
+        int32 [B, H, W] u16 values, ``pv`` u8 previews or None, ``coded``
+        the names of the rANS-decoded planes and ``ok`` their integrity
+        checks (None when there are none).  Runs on the issue stream.
+        ``keep``: staged inputs the queued work reads, held until it has
+        run."""
+        if not device_frames:
+            frames = to_int16(frames)
+        done = None
+        if self._stream is not None:
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        copy, dev = self._copy_stream, self._device
+        refs = [frames, pv, ok, keep]
+
+        def finalize():
+            frames, pv, ok, _keep = refs
+            refs.clear()
+            host = _download(
+                [ok] if device_frames else [ok, frames, pv], copy, done)
+            if ok is not None:
+                plane_codec.raise_if_bad(coded, host[0].tolist())
+            if device_frames:
+                if copy is not None:
+                    cur = torch.cuda.current_stream(dev)
+                    for t in (frames, pv):
+                        if t is not None:
+                            t.record_stream(cur)
+                return frames, pv
+            return (host[1].numpy().view(np.uint16),
+                    None if pv is None else host[2].numpy())
+
+        return finalize
+
+    def _frame0_issue(self, want_previews: bool, device_frames: bool):
+        """finalize for the synthesized frame 0 (the delta frame) as a
+        batch of one, with its preview made from the delta high plane."""
+        with self._on_stream():
+            pv = (generate_preview(self._delta_high[None]) if want_previews
+                  else None)
+            return self._finish(
+                combine_planes(self._delta_high[None], self._delta_low[None]),
+                pv, [], None, device_frames)
+
+    def _issue_batch(self, index: int, want_previews: bool = False):
+        """Issue batch ``index``'s decode -> finalize; with an upload
+        cache, a batch already staged under its section's hash skips the
+        parse and the uploads."""
+        off, b = self._batches[index]
+        key = None
+        if self._upload_cache is not None:
+            (size,) = struct.unpack_from("<Q", self._data, off)
+            key = _section_key(self._data[off : off + size], self.header)
+            hit = self._staged_issue(key, want_previews, False)
+            if hit is not None:
+                return hit[0]
+        return self._decode_parsed_batch_issue(
+            self._parse_batch(off), b, want_previews, section_key=key)
 
     def decode_batch(self, index: int) -> np.ndarray:
         """Decode batch ``index`` -> [B, H, W] uint16 (left-aligned values)."""
-        off, b = self._batches[index]
-        return self._decode_parsed_batch(self._parse_batch(off), b)[0]
+        return self._issue_batch(index)()[0]
 
     def decode_frame(self, index: int) -> np.ndarray:
         """Random-access decode of ONE frame by global frame index ->
@@ -882,10 +1113,11 @@ class FpvtReader:
         cc = self._chain_cache
         if cc is not None and cc[0] == bi and j0 <= cc[1] < j:
             t0, ph, pl = cc[1] + 1, cc[2], cc[3]
-        for t in range(t0, j + 1):
-            ph, pl = self._decode_frame_planes(pb, t, ph, pl)
-        self._chain_cache = (bi, j, ph, pl)
-        return _to_u16(ph[None], pl[None])[0]
+        with self._on_stream():
+            for t in range(t0, j + 1):
+                ph, pl = self._decode_frame_planes(pb, t, ph, pl)
+            self._chain_cache = (bi, j, ph, pl)
+            return _to_u16(ph[None], pl[None])[0]
 
     def _decode_frame_planes(
         self, pb: fpvt.ParsedBatch, t: int, prev_high: torch.Tensor,
@@ -914,10 +1146,7 @@ class FpvtReader:
         self, index: int
     ) -> tuple[np.ndarray, np.ndarray]:
         """Decode batch ``index``'s frames and previews."""
-        off, b = self._batches[index]
-        return self._decode_parsed_batch(
-            self._parse_batch(off), b, want_previews=True
-        )
+        return self._issue_batch(index, want_previews=True)()
 
     def preview_frame(self, index: int) -> np.ndarray:
         """Preview of ONE frame by global frame index -> [H//4, W//4] u8.
@@ -925,28 +1154,32 @@ class FpvtReader:
         preview is made from the delta high plane."""
         bi, j = self._frame_to_batch[index]
         if bi == -1:
-            return generate_preview(self._delta_high[None])[0].cpu().numpy()
+            with self._on_stream():
+                return generate_preview(
+                    self._delta_high[None])[0].cpu().numpy()
         return self.decode_previews(bi)[j]
 
     def decode_previews(self, index: int) -> np.ndarray:
         """Decode batch ``index``'s previews -> [B, H//4, W//4] uint8,
         without touching its main planes."""
         off, b = self._batches[index]
-        return self._decode_previews_parsed(self._parse_batch(off), b)
+        pb = self._parse_batch(off)
+        with self._on_stream():
+            res = (None if pb.preview is None else
+                   decode_plane_batch(pb.preview, self._device, "preview"))
+            return self._previews(res, pb.frame_flags, b).cpu().numpy()
 
-    def _decode_previews_parsed(
-        self, pb: fpvt.ParsedBatch, b: int
-    ) -> np.ndarray:
+    def _previews(self, res, flags: np.ndarray, b: int) -> torch.Tensor:
+        """A batch's [B, H//4, W//4] u8 previews from its decoded preview
+        residuals ``res`` (None: the section has no preview stream)."""
         ph, pw = self.header.ysize // 4, self.header.xsize // 4
-        if pb.preview is None:
+        if res is None:
             if ph * pw == 0:
-                return np.zeros((b, ph, pw), np.uint8)
+                return torch.zeros((b, ph, pw), dtype=torch.uint8,
+                                   device=self._device)
             raise ValueError("batch has no preview stream")
-        res = decode_plane_batch(pb.preview, self._device, "preview")
-        res = res.reshape(b, ph, pw)
-        return _inverse_preview(
-            res, pb.frame_flags, self._delta_high
-        ).cpu().numpy()
+        return _inverse_preview(res.reshape(b, ph, pw), flags,
+                                self._delta_high)
 
 
 class FpvtStreamingReader:
@@ -956,23 +1189,64 @@ class FpvtStreamingReader:
     batch section as it arrives; the footer (if ever seen) ends the stream,
     so a truncated file without footer streams fully."""
 
-    def __init__(self, callback, want_previews: bool = False,
-                 device="cuda") -> None:
+    def __init__(
+        self, callback, want_previews: bool = False, batch_hook=None,
+        device="cuda", device_frames: bool = False,
+        upload_cache: dict | None = None, content_id=None,
+    ) -> None:
         """``callback(frames u16 [B, H, W], timestamps i64 [B])`` per batch;
         with ``want_previews`` it receives a third argument, the
-        [B, H//4, W//4] u8 previews."""
+        [B, H//4, W//4] u8 previews.
+
+        ``batch_hook(finalize, timestamps)``: pipelining hook.  When set,
+        each complete batch (and the synthesized frame 0) is issued inside
+        :meth:`decode` and the hook receives its ``finalize() -> (frames,
+        previews or None)`` instead of the callback firing; the owner
+        finalizes, on another thread, so batch n's download overlaps batch
+        n+1's upload and decode (FpvtReader._decode_parsed_batch_issue).
+
+        ``device_frames``: frames and previews stay on the device
+        (FpvtReader._decode_parsed_batch_issue).  ``upload_cache``: an
+        optional dict staging batch uploads on the device (FpvtReader),
+        shared with any reader given the same dict; a staged section skips
+        the parse and the upload.
+
+        ``content_id``: the caller's identity of this stream's bytes.
+        With an upload cache, sections are then keyed by (content_id,
+        absolute byte offset) instead of a hash of their bytes; the caller
+        guarantees that one id names identical bytes (two different
+        streams fed under one id decode the first one's staged batches)."""
         self._callback = callback
         self._want_previews = want_previews
-        self._device = device
+        self._batch_hook = batch_hook
+        self._device = resolve_device(device)
+        self._device_frames = device_frames
+        self._upload_cache = upload_cache
+        self._content_id = content_id
         self._buffer = bytearray()
         self._inner: FpvtReader | None = None
         self._pos = 0
+        self._abs_base = 0  # stream offset of buffer position 0
 
-    def _emit(self, imgs, ts, pv) -> None:
+    def _deliver(self, fin, ts) -> None:
+        if self._batch_hook is not None:
+            self._batch_hook(fin, ts)
+            return
+        imgs, pv = fin()
         if self._want_previews:
             self._callback(imgs, ts, pv)
         else:
             self._callback(imgs, ts)
+
+    def _key(self, size: int):
+        """The upload-cache key of the ``size``-byte section at the buffer
+        position (its bytes are hashed in place)."""
+        hdr = self._inner.header
+        if self._content_id is None:
+            return _section_key(
+                memoryview(self._buffer)[self._pos : self._pos + size], hdr)
+        return ("cid", self._content_id, self._abs_base + self._pos,
+                hdr.ysize, hdr.xsize, hdr.chunk_log2)
 
     def decode(self, data: bytes) -> None:
         self._buffer += data
@@ -984,16 +1258,15 @@ class FpvtStreamingReader:
             if len(buf) < fpvt.HEADER_SIZE + dsize:
                 return
             inner = FpvtReader.__new__(FpvtReader)
-            inner._open(bytes(buf[: fpvt.HEADER_SIZE + dsize]), self._device)
+            inner._open(bytes(buf[: fpvt.HEADER_SIZE + dsize]), self._device,
+                        self._upload_cache)
             self._inner = inner
             self._pos = fpvt.HEADER_SIZE + dsize
             if inner.header.delta_is_frame0:
-                pv0 = None
-                if self._want_previews:
-                    pv0 = generate_preview(inner._delta_high[None]).cpu()
-                    pv0 = pv0.numpy()
-                self._emit(inner.frame0()[None], np.full(1, -1, np.int64),
-                           pv0)
+                self._deliver(
+                    inner._frame0_issue(self._want_previews,
+                                        self._device_frames),
+                    np.full(1, -1, np.int64))
         hh, ww = self._inner.header.ysize, self._inner.header.xsize
         while len(buf) - self._pos >= 9:
             size, stype = struct.unpack_from("<QB", buf, self._pos)
@@ -1001,41 +1274,52 @@ class FpvtStreamingReader:
                 break  # footer: end of frames
             if len(buf) - self._pos < size:
                 break  # incomplete section
+            key = None
+            if self._upload_cache is not None:
+                key = self._key(size)
+                hit = self._inner._staged_issue(key, self._want_previews,
+                                                self._device_frames)
+                if hit is not None:
+                    fin, _b, ts = hit
+                    self._deliver(fin, ts)
+                    self._pos += size
+                    continue
+            # parsed in place: every array the parse keeps is a copy
             pb = fpvt.parse_batch_section(
-                bytes(buf[self._pos : self._pos + size]), 0,
-                plane_size=hh * ww, preview_size=(hh // 4) * (ww // 4),
+                buf, self._pos, plane_size=hh * ww,
+                preview_size=(hh // 4) * (ww // 4),
             )
-            imgs, pv = self._inner._decode_parsed_batch(
-                pb, len(pb.frame_flags), want_previews=self._want_previews
-            )
-            self._emit(imgs, pb.timestamps, pv)
+            self._deliver(self._inner._decode_parsed_batch_issue(
+                pb, len(pb.frame_flags), self._want_previews,
+                self._device_frames, key,
+            ), pb.timestamps)
             self._pos += size
         # drop consumed bytes on every exit path, or a long stream's buffer
         # would keep everything decoded so far
         if self._pos > 1 << 22:
+            self._abs_base += self._pos
             del self._buffer[: self._pos]
             self._pos = 0
 
 
-def encode_file_fpvt(
+def file_encode_setup(
     frames: np.ndarray,
-    shift: int = 0,
-    big_endian: bool = False,
-    frames_per_batch: int = 16,
-    chunk_log2: int = 12,
-    delta_frame: np.ndarray | None = None,
-    timestamps: np.ndarray | None = None,
+    shift: int,
+    big_endian: bool,
+    frames_per_batch: int,
+    chunk_log2: int,
+    delta_frame: np.ndarray | None,
+    timestamps: np.ndarray | None,
     device="cuda",
-) -> bytes:
-    """One-shot FPVT encode of [N, H, W] uint16 (or uint8) frames.
-
-    Without ``delta_frame``, frame 0 is stored once as the delta section
-    (HDR_F_DELTA_IS_FRAME0) and its timestamp is dropped with it (the
-    synthesized frame 0 reports -1); the rest are coded in batches of
-    ``frames_per_batch``.  ``timestamps``: optional per-frame i64 array.
-    uint8 frames ride the shift-8 little-endian layout (shift 0 promotes to
-    8).  The narrow-stream policy is decided from the total body size: the
-    stored chunk states it saves only matter when the file is small."""
+):
+    """The preamble of a file-level encode: coerce and validate the inputs,
+    split off the delta frame (without ``delta_frame``, frame 0 is stored
+    once as the delta section, HDR_F_DELTA_IS_FRAME0, and its timestamp is
+    dropped with it), and make the writer -> ``(writer, header bytes,
+    body frames, body timestamps)``.  uint8 frames ride the shift-8
+    little-endian layout (shift 0 promotes to 8).  The narrow-stream
+    policy is decided from the total body size: the stored chunk states it
+    saves only matter when the file is small."""
     frames = np.asarray(frames)
     shift = resolve_u8_shift(frames.dtype, shift, big_endian)
     if frames.dtype != np.uint8:
@@ -1056,7 +1340,28 @@ def encode_file_fpvt(
         delta_is_frame0=delta_is_frame0,
         narrow=body.size <= plane_codec.NARROW_MAX_SYMS,
     )
-    parts = [wri.init(delta_frame)]
+    return wri, wri.init(delta_frame), body, ts_body
+
+
+def encode_file_fpvt(
+    frames: np.ndarray,
+    shift: int = 0,
+    big_endian: bool = False,
+    frames_per_batch: int = 16,
+    chunk_log2: int = 12,
+    delta_frame: np.ndarray | None = None,
+    timestamps: np.ndarray | None = None,
+    device="cuda",
+) -> bytes:
+    """One-shot FPVT encode of [N, H, W] uint16 (or uint8) frames
+    (:func:`file_encode_setup`, then batches of ``frames_per_batch``).
+    ``timestamps``: optional per-frame i64 array; without ``delta_frame``
+    the synthesized frame 0 reports -1."""
+    wri, header, body, ts_body = file_encode_setup(
+        frames, shift, big_endian, frames_per_batch, chunk_log2, delta_frame,
+        timestamps, device,
+    )
+    parts = [header]
     for s in range(0, body.shape[0], frames_per_batch):
         parts.append(wri.encode_batch(
             body[s : s + frames_per_batch],
@@ -1069,13 +1374,20 @@ def encode_file_fpvt(
 def decode_file_fpvt(data: bytes, dtype=np.uint16, device="cuda") -> np.ndarray:
     """One-shot FPVT decode -> [N, H, W] uint16 (left-aligned values).
 
-    ``dtype=np.uint8`` returns the original 8-bit samples of a file written
-    from uint8 frames; the header's shift must say so."""
+    Batch n+1 is issued before batch n is finalized, so on a card batch
+    n's download overlaps batch n+1's decode.  ``dtype=np.uint8`` returns
+    the original 8-bit samples of a file written from uint8 frames; the
+    header's shift must say so."""
     r = FpvtReader(data, device=device)
     as_u8 = np.dtype(dtype) == np.uint8
     if as_u8:
         validate_u8_config(r.header.shift, r.header.big_endian)
-    outs = [r.decode_batch(i) for i in range(r.num_batches)]
+    outs, pending = [], []
+    for i in range(r.num_batches):
+        pending.append(r._issue_batch(i))
+        if len(pending) == 2:
+            outs.append(pending.pop(0)()[0])
+    outs += [fin()[0] for fin in pending]
     if r.header.delta_is_frame0:
         outs.insert(0, r.frame0()[None])
     h, w = r.header.ysize, r.header.xsize
@@ -1083,3 +1395,62 @@ def decode_file_fpvt(data: bytes, dtype=np.uint16, device="cuda") -> np.ndarray:
     if as_u8:
         return (out >> 8).astype(np.uint8)
     return out.astype(dtype, copy=False)
+
+
+def _warmup_frames(rng, n: int, ysize: int, xsize: int, shift: int):
+    """Synthetic warmup batch: iid noise plus a strong per-frame brightness
+    drift, so non-anchor frames' prev-frame residual (one drift step) beats
+    both the static delta and no prediction, as in temporally correlated
+    streams.  Noise keeps every residual plane non-constant, so every
+    kernel runs."""
+    # int64 arithmetic: maxv = 65536 at shift=0 overflows uint16 scalars,
+    # and tiny sample ranges (shift >= 11) need the floors
+    maxv = 1 << (16 - shift)
+    noise = rng.integers(0, max(maxv // 64, 1), (n, ysize, xsize), np.int64)
+    drift = (np.arange(n, dtype=np.int64) * max(maxv // 16, 1)) % maxv
+    return ((noise + drift[:, None, None]) % maxv).astype(np.uint16)
+
+
+def warmup_stream(
+    xsize: int,
+    ysize: int,
+    shift: int = 0,
+    big_endian: bool = False,
+    frames_per_batch: int = 16,
+    chunk_log2: int = 12,
+    device="cuda",
+    decode: bool = True,
+    previews: bool = False,
+    mesh=None,
+) -> None:
+    """Pay a stream geometry's one-time costs before traffic arrives: on a
+    card, the kernels' nvcc build and load (``utils.kernels.library``) and
+    the CUDA context, then one batch encoded as the hubs encode it
+    (``narrow=False``) and, with ``decode``, decoded (with its previews
+    when ``previews``).  Synthetic drifting-noise frames
+    (:func:`_warmup_frames`) make every kernel run.
+
+    ``mesh`` (the JAX package's sharded whole-file programs) has no
+    counterpart yet: passing one raises ValueError."""
+    if mesh is not None:
+        raise ValueError(
+            "warmup_stream(mesh=...) needs the sharded multi-GPU path "
+            "(parallel/, ROADMAP queue 1 item 6), which is not ported yet")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        kernels.library()
+    rng = np.random.default_rng(0)
+    frames = _warmup_frames(rng, frames_per_batch + 1, ysize, xsize, shift)
+    wri = FpvtWriter(
+        xsize, ysize, shift, big_endian, frames_per_batch, chunk_log2,
+        device=dev, narrow=False,
+    )
+    data = b"".join([wri.init(frames[0]), wri.encode_batch(frames[1:]),
+                     wri.finish()])
+    if not decode:
+        return
+    rdr = FpvtReader(data, device=dev)
+    if previews:
+        rdr.decode_batch_with_previews(0)
+    else:
+        rdr.decode_batch(0)

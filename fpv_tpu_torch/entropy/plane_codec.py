@@ -358,17 +358,34 @@ def plane_blocks(
     return syms, lens, rans_cuda.u32_tensor(fc, plane.device), freq
 
 
-def decode_blocks_grouped(
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on ``device``.  To a CUDA device it goes
+    through pinned memory without waiting for the device: the copy is
+    queued on the current stream, as a kernel launch is.  On the CPU the
+    tensor shares the array's memory."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class StagedBlocks(NamedTuple):
+    """K2's inputs for several coded block ranges, on the device: one
+    :class:`rans_cuda.DecodePlane` and one name per job."""
+
+    names: list[str]
+    planes: list[rans_cuda.DecodePlane]
+
+
+def stage_blocks(
     jobs: list[tuple[str, PlaneStream, int, int]], device
-) -> list[torch.Tensor]:
-    """K2 on rANS blocks ``b0..b1`` (inclusive) of several coded streams,
-    ``jobs`` of (name, stream, b0, b1), in one launch -> each job's flat u8
-    symbols [(b1-b0+1) * K * lanes] on ``device`` (ctx16 nibbles moved
-    back to the high nibble).  Only those blocks' states, counts and
-    payload words are uploaded: each kind of table in one copy, the
-    payload slices 16-byte aligned in one padded device buffer, as K2
-    stages them.  The ok flags are read once; a failed check raises
-    ValueError naming the plane."""
+) -> StagedBlocks:
+    """Upload rANS blocks ``b0..b1`` (inclusive) of several coded streams,
+    ``jobs`` of (name, stream, b0, b1), for one K2 launch: only those
+    blocks' states, counts and payload words, each kind of table in one
+    copy, the payload slices 16-byte aligned in one padded buffer, as K2
+    stages them.  Nothing waits for the device."""
+    dev = torch.device(device)
     parts = {k: [] for k in ("counts", "starts", "states", "lens", "table")}
     pay_off, pays, pos = [], [], 0
     for _name, st, b0, b1 in jobs:
@@ -391,13 +408,17 @@ def decode_blocks_grouped(
         pays.append(st.payload[cum[g0] : cum[g1]])
         pay_off.append(pos)
         pos += -(-len(pays[-1]) // PAYLOAD_ALIGN) * PAYLOAD_ALIGN
-    # each slice goes straight to its place in one device buffer (the pad
-    # past the last is never read as a word, only staged)
-    dev_pay = torch.empty(pos + PAYLOAD_PAD, dtype=torch.int16, device=device)
+    # each slice goes straight to its place in one host buffer, uploaded in
+    # one copy (the pad past the last slice is never read as a word, only
+    # staged)
+    host_pay = torch.empty(pos + PAYLOAD_PAD, dtype=torch.int16,
+                           pin_memory=dev.type == "cuda")
+    view = host_pay.numpy()
     for off, p in zip(pay_off, pays):
-        dev_pay[off : off + len(p)].copy_(torch.from_numpy(p.view(np.int16)))
-    on_dev = {k: torch.from_numpy(np.concatenate(v)).to(device)
-              .split([len(a) for a in v]) for k, v in parts.items()}
+        view[off : off + len(p)] = p.view(np.int16)
+    dev_pay = host_pay.to(dev, non_blocking=True)
+    on_dev = {k: upload(np.concatenate(v), dev).split([len(a) for a in v])
+              for k, v in parts.items()}
     planes = []
     for i, (_name, st, _b0, _b1) in enumerate(jobs):
         ctx = st.coding == CODING_CTX16
@@ -408,17 +429,46 @@ def decode_blocks_grouped(
             dev_pay[pay_off[i] : pay_off[i] + len(pays[i])], st.chunk_len,
             CTX_PROB_BITS if ctx else PROB_BITS, ctx,
         ))
+    return StagedBlocks([name for name, *_ in jobs], planes)
+
+
+def launch_blocks(
+    staged: StagedBlocks, only=None
+) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """K2 on staged blocks in one launch (``only``: the job indices to
+    decode, default all) -> each job's flat u8 symbols
+    [(b1-b0+1) * K * lanes] (ctx16 nibbles moved back to the high nibble)
+    and a bool tensor [jobs] of their integrity checks, still on the
+    device: nothing waits for it."""
+    idx = range(len(staged.planes)) if only is None else only
+    planes = [staged.planes[i] for i in idx]
     decoded = rans_cuda.rans_decode_grouped(planes)
-    ok = torch.stack([(o == 1).all() for _s, o in decoded]).cpu()
-    for (name, _st, _b0, _b1), good in zip(jobs, ok.tolist()):
+    ok = torch.stack([(o == 1).all() for _s, o in decoded])
+    syms = [s.reshape(-1) << 4 if p.ctx_mode else s.reshape(-1)
+            for p, (s, _o) in zip(planes, decoded)]
+    return syms, ok
+
+
+def raise_if_bad(names: list[str], ok: list[bool]) -> None:
+    """ValueError naming the first plane whose integrity check failed."""
+    for name, good in zip(names, ok):
         if not good:
             what = f" ({name} plane)" if name else ""
             raise ValueError(f"rANS stream integrity check failed{what}")
-    return [
-        syms.reshape(-1) << 4 if st.coding == CODING_CTX16
-        else syms.reshape(-1)
-        for (_n, st, _b0, _b1), (syms, _ok) in zip(jobs, decoded)
-    ]
+
+
+def decode_blocks_grouped(
+    jobs: list[tuple[str, PlaneStream, int, int]], device
+) -> list[torch.Tensor]:
+    """K2 on rANS blocks ``b0..b1`` (inclusive) of several coded streams,
+    ``jobs`` of (name, stream, b0, b1), in one launch -> each job's flat u8
+    symbols on ``device`` (:func:`stage_blocks`, :func:`launch_blocks`).
+    The ok flags are read once; a failed check raises ValueError naming
+    the plane."""
+    staged = stage_blocks(jobs, device)
+    syms, ok = launch_blocks(staged)
+    raise_if_bad(staged.names, ok.cpu().tolist())
+    return syms
 
 
 def decode_plane_ranges(
@@ -431,6 +481,18 @@ def decode_plane_ranges(
     frame of a 1024-lane batch costs at most ceil(S / (K * 1024)) + 1
     blocks per plane.  Raises ValueError when a rANS integrity check
     fails."""
+    out, jobs, where = _split_ranges(requests, device)
+    if jobs:
+        for (i, a, n), flat in zip(where,
+                                   decode_blocks_grouped(jobs, device)):
+            out[i] = flat[a : a + n]
+    return out
+
+
+def _split_ranges(requests, device):
+    """CONST and RAW requests' symbols on ``device`` (the rest None), the
+    coded requests as block jobs, and where each job's symbols go: (request
+    index, offset into the job's symbols, count)."""
     out: list[torch.Tensor | None] = [None] * len(requests)
     jobs, where = [], []
     for i, (name, st, lo, hi) in enumerate(requests):
@@ -438,16 +500,55 @@ def decode_plane_ranges(
             out[i] = torch.full((hi - lo,), st.value, dtype=torch.uint8,
                                 device=device)
         elif st.coding == CODING_RAW:
-            out[i] = torch.from_numpy(st.raw_bytes[lo:hi].copy()).to(device)
+            out[i] = upload(st.raw_bytes[lo:hi], device)
         else:
             span = st.chunk_len * st.lanes
             jobs.append((name, st, lo // span, (hi - 1) // span))
             where.append((i, lo - lo // span * span, hi - lo))
-    if jobs:
-        for (i, a, n), flat in zip(where,
-                                   decode_blocks_grouped(jobs, device)):
-            out[i] = flat[a : a + n]
-    return out
+    return out, jobs, where
+
+
+class StagedRanges(NamedTuple):
+    """:func:`stage_plane_ranges`'s result: per request its name, and its
+    symbols where no kernel is needed (CONST, RAW) or None; the coded
+    requests' staged blocks and where their symbols go."""
+
+    names: list[str]
+    direct: list[torch.Tensor | None]
+    blocks: StagedBlocks | None
+    where: list[tuple[int, int, int]]
+
+
+def stage_plane_ranges(
+    requests: list[tuple[str, PlaneStream, int, int]], device
+) -> StagedRanges:
+    """The staging half of :func:`decode_plane_ranges`: every upload, no
+    kernel, nothing waits for the device."""
+    out, jobs, where = _split_ranges(requests, device)
+    return StagedRanges([r[0] for r in requests], out,
+                        stage_blocks(jobs, device) if jobs else None, where)
+
+
+def launch_plane_ranges(
+    staged: StagedRanges, names
+) -> tuple[dict[str, torch.Tensor], list[str], torch.Tensor | None]:
+    """The launch half of :func:`decode_plane_ranges`, for the requests
+    named in ``names``: their u8 symbols by name, the names of the coded
+    ones and a bool tensor of those's integrity checks (None when none is
+    coded), from one K2 launch.  Nothing waits for the device: the caller
+    reads the checks (:func:`raise_if_bad`)."""
+    want = set(names)
+    out = {n: t for n, t in zip(staged.names, staged.direct)
+           if n in want and t is not None}
+    jobs = [j for j, (i, _a, _n) in enumerate(staged.where)
+            if staged.names[i] in want]
+    if not jobs:
+        return out, [], None
+    syms, ok = launch_blocks(staged.blocks, jobs)
+    for j, flat in zip(jobs, syms):
+        i, a, n = staged.where[j]
+        out[staged.names[i]] = flat[a : a + n]
+    return out, [staged.blocks.names[j] for j in jobs], ok
 
 
 def decode_plane_batch(

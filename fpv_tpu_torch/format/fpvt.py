@@ -449,3 +449,20 @@ def parse_footer(data: bytes) -> list[tuple[int, int]]:
         out.append((off, n))
         p += 12
     return out
+
+
+def check_footer_counts(data: bytes, batches: list[tuple[int, int]]) -> None:
+    """Hold each footer entry (offset, nframes) to the section it points
+    to: a batch section whose own frame count is nframes; ValueError
+    otherwise.  Reads 17 bytes per batch.  (The JAX package's reader takes
+    the footer's counts as they are.)"""
+    for off, n in batches:
+        _need(data, off, 17)
+        _size, stype = struct.unpack_from("<QB", data, off)
+        if stype != SECTION_BATCH:
+            raise ValueError("footer entry does not point at a batch section")
+        (nframes,) = struct.unpack_from("<I", data, off + 9)
+        if nframes != n:
+            raise ValueError(
+                f"footer claims {n} frames for a batch section of {nframes}"
+            )

@@ -9,19 +9,21 @@ build.  Nothing is built or loaded when a module is imported: the CPU
 paths never touch this module's loader.
 
 ``LAUNCHES`` counts kernel launches per wrapper name; each wrapper adds
-one where it launches its kernel and nowhere else.
+one where it launches its kernel and nowhere else.  The build and the
+counts are safe to reach from several threads at once (the serving hubs'
+workers): one thread builds and loads, the others wait for it.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 
 import torch
 
@@ -35,6 +37,10 @@ NVCC_FLAGS = (
 
 LAUNCHES = {"rans_encode_chain": 0, "rans_encode_place": 0,
             "rans_decode": 0, "cg2d_decode": 0}
+
+_BUILD_LOCK = threading.RLock()  # the build and the load of the library
+_COUNT_LOCK = threading.Lock()  # LAUNCHES updates
+_LIB: ctypes.CDLL | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,8 +59,15 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of ``name`` (read-modify-write under a lock)."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -94,29 +107,36 @@ def build() -> pathlib.Path:
     report (ptxas registers, shared memory, spills per kernel) is kept
     beside the library as ``<library>.log``."""
     out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
-        nvcc = _nvcc()
-        report = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
-                           for s, o in zip(SOURCES, objs)])
-        out.with_suffix(".log").write_text(report)
-        lib = os.path.join(tmp, out.name)
-        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
-        os.replace(lib, out)
+    with _BUILD_LOCK:
+        if out.exists():
+            return out
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+            nvcc = _nvcc()
+            report = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o,
+                                str(CSRC / s)]
+                               for s, o in zip(SOURCES, objs)])
+            out.with_suffix(".log").write_text(report)
+            lib = os.path.join(tmp, out.name)
+            _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+            os.replace(lib, out)
     return out
 
 
-@functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return lib
+    """The kernels' library, built (:func:`build`) and loaded on first
+    use, once per process."""
+    global _LIB
+    with _BUILD_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _LIB = lib
+        return _LIB
 
 
 def launch(name: str, fn_name: str, device: torch.device, *args) -> None:
@@ -127,7 +147,7 @@ def launch(name: str, fn_name: str, device: torch.device, *args) -> None:
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+    count_launch(name)
 
 
 def check_cuda(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:

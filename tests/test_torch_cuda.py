@@ -314,3 +314,143 @@ def test_decode_frame_on_card_equals_full_decode(cuda):
     for i in (9, 1, 5, 0, 8):
         np.testing.assert_array_equal(r.decode_frame(i), want[i])
     assert kernels.LAUNCHES["rans_decode"] > 0
+
+
+def _hub_streams():
+    return {f"cam{i}": testdata.plasma_frames(5, 128, 160, bits=12,
+                                              seed=30 + i)
+            for i in range(2)}
+
+
+def _hub_encode(cuda, streams):
+    out = {sid: [] for sid in streams}
+    hub = fpv_tpu_torch.MultiStreamEncoder(
+        160, 128, shift=4, frames_per_batch=2, chunk_log2=4,
+        sink=lambda sid, d: out[sid].append(d), devices=[cuda])
+    for sid, fr in streams.items():
+        hub.add_stream(sid, fr[0])
+    for i in range(5):
+        for sid, fr in streams.items():
+            hub.push_frame(sid, 10 + i, fr[i])
+    hub.close()
+    return {sid: b"".join(parts) for sid, parts in out.items()}
+
+
+@pytest.mark.cuda
+def test_hub_round_trip_device_frames_on_card(cuda):
+    """Encode hub -> decode hub on the card: the device_frames sink gets
+    CUDA tensors (int32 frames, u8 previews) equal to the host decode, and
+    the hub's bytes equal the CPU's."""
+    streams = _hub_streams()
+    files = _hub_encode(cuda, streams)
+    for sid, fr in streams.items():
+        np.testing.assert_array_equal(
+            fpv_tpu_torch.decode_file_fpvt(files[sid], device=cuda), fr << 4)
+    assert files == _hub_encode(torch.device("cpu"), streams)
+    got = {sid: [] for sid in streams}
+    hub = fpv_tpu_torch.MultiStreamDecoder(
+        sink=lambda sid, fr, ts, pv: got[sid].append((fr, ts, pv)),
+        want_previews=True, device_frames=True, devices=[cuda])
+    for sid in streams:
+        hub.add_stream(sid)
+        hub.feed(sid, files[sid])
+    hub.close()
+    for sid, fr in streams.items():
+        r = fpv_tpu_torch.FpvtReader(files[sid], device="cpu")
+        assert len(got[sid]) == r.num_batches
+        for bi, (frames, ts, pv) in enumerate(got[sid]):
+            assert frames.is_cuda and frames.dtype == torch.int32
+            assert pv.is_cuda and pv.dtype == torch.uint8
+            want, want_pv = r.decode_batch_with_previews(bi)
+            np.testing.assert_array_equal(
+                frames.cpu().numpy().astype(np.uint16), want)
+            np.testing.assert_array_equal(pv.cpu().numpy(), want_pv)
+            np.testing.assert_array_equal(ts, r.timestamps(bi))
+
+
+@pytest.mark.cuda
+def test_hub_issue_and_finalize_use_different_streams(cuda, monkeypatch):
+    """The decode hub launches every kernel on its reader's issue stream
+    (not the default stream) and waits only on the reader's copy stream,
+    a third one; the frames stay exact."""
+    from fpv_tpu_torch.utils import kernels
+
+    streams = _hub_streams()
+    files = _hub_encode(cuda, streams)
+    launched, synced = [], []
+    real_launch, real_sync = kernels.launch, torch.cuda.Stream.synchronize
+
+    def launch(name, fn_name, device, *args):
+        launched.append(torch.cuda.current_stream(device).cuda_stream)
+        return real_launch(name, fn_name, device, *args)
+
+    def sync(self):
+        synced.append(self.cuda_stream)
+        return real_sync(self)
+
+    monkeypatch.setattr(kernels, "launch", launch)
+    monkeypatch.setattr(torch.cuda.Stream, "synchronize", sync)
+    got = []
+    hub = fpv_tpu_torch.MultiStreamDecoder(
+        sink=lambda sid, fr, ts: got.append(fr), devices=[cuda])
+    hub.add_stream("s")
+    hub.feed("s", files["cam0"])
+    hub.close()
+    np.testing.assert_array_equal(np.concatenate(got),
+                                  streams["cam0"] << 4)
+    reader = hub._readers["s"]._inner
+    issue, copy = reader._stream.cuda_stream, reader._copy_stream.cuda_stream
+    default = torch.cuda.default_stream(cuda).cuda_stream
+    assert len({issue, copy, default}) == 3
+    assert launched and set(launched) == {issue}
+    assert synced and set(synced) == {copy}
+
+
+@pytest.mark.cuda
+def test_mutation_fuzz_on_card_then_clean_decode(cuda):
+    """Single-byte mutations and truncations of a wide file (some forcing
+    CG2D frames, so K3 runs on garbage) decode or raise ValueError on the
+    card, and a clean decode afterwards is exact: the CUDA context
+    survives."""
+    import struct
+
+    from fpv_tpu_torch.format import fpvt as tfpvt
+    from fpv_tpu_torch.utils import kernels
+
+    frames = testdata.plasma_frames(5, 128, 160, bits=12, seed=8)
+    wri = fpv_tpu_torch.FpvtWriter(160, 128, 4, False, 2, 4, device=cuda,
+                                   delta_is_frame0=True, narrow=False)
+    data = b"".join([wri.init(frames[0])]
+                    + [wri.encode_batch(frames[s : s + 2]) for s in (1, 3)]
+                    + [wri.finish()])
+    mutants = []
+    for off, n in tfpvt.parse_footer(data):
+        for j in range(n):  # frame flags: spatial bits -> CG2D
+            m = bytearray(data)
+            m[off + 17 + j] = (m[off + 17 + j] & ~6) | 4
+            mutants.append(bytes(m))
+        m = bytearray(data)  # a high-plane count
+        nfr = struct.unpack_from("<I", data, off + 9)[0]
+        pos = off + 17 + 9 * nfr
+        nch = struct.unpack_from("<I", data, pos + 12)[0]
+        struct.pack_into("<I", m, pos + 24 + 512 + 4 * nch, 5)
+        mutants.append(bytes(m))
+    rng = np.random.default_rng(11)
+    for _ in range(60):
+        m = bytearray(data)
+        m[int(rng.integers(0, len(m)))] ^= int(rng.integers(1, 256))
+        mutants.append(bytes(m))
+    mutants += [data[: int(c)] for c in rng.integers(0, len(data), 15)]
+    kernels.reset_launches()
+    for m in mutants:
+        try:
+            fpv_tpu_torch.decode_file_fpvt(m, device=cuda)
+            r = fpv_tpu_torch.FpvtReader(m, device=cuda)
+            for bi in range(r.num_batches):
+                r.decode_batch_with_previews(bi)
+        except ValueError:
+            pass
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["rans_decode"] and kernels.LAUNCHES["cg2d_decode"]
+    np.testing.assert_array_equal(
+        fpv_tpu_torch.decode_file_fpvt(data, device=cuda), frames << 4)

@@ -268,3 +268,85 @@ def test_reader_rejects_oversize_device_batch(files):
                            low=big, preview=None)
     with pytest.raises(ValueError, match="2\\^31 symbols"):
         r._decode_parsed_batch(pb, 1)
+
+
+# malformed input: the JAX suite's tests (tests/test_fpvt.py) on the port,
+# with the same seeds and counts; every failure must be a ValueError
+
+
+def test_malformed_inputs_rejected():
+    import struct
+
+    with pytest.raises(ValueError):
+        fpv_tpu_torch.FpvtReader(b"NOPE" + b"\0" * 60, device="cpu")
+    with pytest.raises(ValueError):
+        tfpvt.Header.parse(b"FPVT" + b"\0" * 10)  # too small
+    # oversized dims
+    bad = struct.pack("<4sBBHIIBBHIQ", b"FPVT", 1, 1, 0, 70000, 70000, 0, 9,
+                      0, 16, 0)
+    with pytest.raises(ValueError):
+        tfpvt.Header.parse(bad)
+    # valid header but garbage body
+    good = tfpvt.Header(xsize=32, ysize=32).serialize()
+    with pytest.raises(ValueError):
+        fpv_tpu_torch.FpvtReader(good + b"\0" * 64, device="cpu")
+
+
+def _fuzz_file() -> bytes:
+    frames = testdata.plasma_frames(4, 16, 16)
+    data = fpv_tpu_torch.encode_file_fpvt(frames, frames_per_batch=2,
+                                          chunk_log2=4, device="cpu")
+    assert data == jcodec.encode_file_fpvt(frames, frames_per_batch=2,
+                                           chunk_log2=4)
+    return data
+
+
+def test_fuzz_single_byte_mutations():
+    """Single-byte mutations either still decode or raise ValueError."""
+    data = bytearray(_fuzz_file())
+    rng = np.random.default_rng(7)
+    for _ in range(150):
+        i = int(rng.integers(0, len(data)))
+        old = data[i]
+        data[i] ^= int(rng.integers(1, 256))
+        try:
+            fpv_tpu_torch.decode_file_fpvt(bytes(data), device="cpu")
+        except ValueError:
+            pass
+        finally:
+            data[i] = old
+
+
+def test_fuzz_truncations():
+    data = _fuzz_file()
+    rng = np.random.default_rng(8)
+    cuts = sorted(set(int(c) for c in rng.integers(0, len(data), 40)))
+    for cut in cuts:
+        try:
+            fpv_tpu_torch.decode_file_fpvt(data[:cut], device="cpu")
+        except ValueError:
+            pass
+
+
+@pytest.mark.parametrize("pos,flip,claimed", [(2431, 4, 67_108_865),
+                                              (2430, 168, 11_010_049)])
+def test_footer_frame_count_checked_at_open(pos, flip, claimed):
+    """A footer entry whose frame count differs from its batch section's
+    is refused when the port's reader opens the file.  A deliberate
+    divergence: the JAX reader takes the footer's counts as they are (its
+    numframes would be 1 + the claimed counts; computed here from its
+    footer parse, not by building its frame index of millions of
+    entries)."""
+    from fpv_tpu.format import fpvt as jfpvt
+
+    data = bytearray(_fuzz_file())
+    assert len(data) == 2448
+    data[pos] ^= flip
+    data = bytes(data)
+    counts = [n for _off, n in jfpvt.parse_footer(data)]
+    assert claimed in counts
+    assert 1 + sum(counts) == claimed + 3
+    with pytest.raises(ValueError, match=f"footer claims {claimed} frames"):
+        fpv_tpu_torch.FpvtReader(data, device="cpu")
+    with pytest.raises(ValueError, match="footer"):
+        fpv_tpu_torch.decode_file_fpvt(data, device="cpu")

@@ -171,6 +171,7 @@ def test_import_leaves_out_jax_and_fpv_tpu():
         "before = set(sys.modules)\n"
         "import fpv_tpu_torch, fpv_tpu_torch.utils.testdata\n"
         "import fpv_tpu_torch.utils.kernels, fpv_tpu_torch.ops.rans_cuda\n"
+        "import fpv_tpu_torch.api.multistream\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'fpv_tpu'))\n"
