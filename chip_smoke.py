@@ -45,10 +45,24 @@
 9. Malformed input on the card: mutations and truncations of a small
    1024-lane file that reach K2 and K3 decode or raise ValueError, then a
    clean decode of the corpus file's batch 1 equals the full decode.
-10. Prints a JSON line of the kernels, then the result line
+10. The FPV1 compatibility profile (``encode_file``/``decode_file``,
+   ``Encoder``, the decoders): the device filter chain on the card
+   against the CPU's on 8 corpus crops; K4 (flat CG inverse) against its
+   plain version on the residuals the main path gives it (the delta
+   frame's and the CG frames' of the first 64 corpus frames, one run of
+   the plain version), and on 4 x 256 x 256; then, counted, the main
+   path: ``encode_file`` + ``decode_file`` of those 64 frames (shift 4,
+   8 brotli threads), lossless, three runs each, with one K4 launch per
+   decode batch plus one for a CG delta frame; card bytes equal CPU bytes
+   on a small file; ``tests/golden/v1_drift.fpv`` pixel-exact and its
+   inputs re-encoded to the pin; random access, previews and the
+   streaming decoder (1 MiB pieces); the time split (brotli threads, the
+   device step, K4).  One ``fpv1`` JSON line.  Without the system
+   libbrotli the phase checks the filter chain and K4 only and says so.
+11. Prints a JSON line of the kernels, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
-Each path (4-9) is driven with the launch counts set to 0 just
+Each path (4-10) is driven with the launch counts set to 0 just
 before it and read just after; a kernel the path needs that it did not
 launch fails the run.  Any failure raises (non-zero exit) and prints no
 result line.
@@ -65,9 +79,20 @@ import struct
 import subprocess
 import time
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 
+from fpv_tpu_torch.api import decoder as fpv1_decoder
+from fpv_tpu_torch.api import encoder as fpv1_encoder
+from fpv_tpu_torch.api import frame as frame_ops
+from fpv_tpu_torch.api.decoder import (
+    RandomAccessDecoder,
+    StreamingDecoder,
+    decode_file,
+)
+from fpv_tpu_torch.api.encoder import encode_file
 from fpv_tpu_torch.api.fpvt_codec import (
     FpvtReader,
     FpvtStreamingReader,
@@ -93,7 +118,9 @@ from fpv_tpu_torch.entropy.tables_device import (
     normalize_freqs_ctx_device,
     normalize_freqs_device,
 )
-from fpv_tpu_torch.format import fpvt
+from fpv_tpu_torch.entropy import brotli
+from fpv_tpu_torch.format import container, fpvt
+from fpv_tpu_torch.models import predictors
 from fpv_tpu_torch.format.fpvt import (
     F_PV_SPATIAL_SHIFT,
     F_SPATIAL_SHIFT,
@@ -801,6 +828,267 @@ def check_fuzz(data: bytes, out: np.ndarray, dev) -> dict:
                 clean_decode_after="equal")
 
 
+FPVT_KERNELS = ("rans_encode_chain", "rans_encode_place", "rans_decode",
+                "cg2d_decode")
+FPV1_FRAMES, FPV1_THREADS = 64, 8  # bench.py:378's 64 frames
+
+
+def fpv1_predicted(frames: np.ndarray, dev) -> tuple:
+    """The FPV1 filter chain on the card over ``frames`` (frame 0 the delta
+    frame) -> (the delta frame's predicted planes, the frames' predicted
+    planes): the high residuals of USE_CG frames are what decode feeds K4."""
+    enc = fpv1_encoder.Encoder(num_threads=0, shift=SHIFT, device=dev)
+    imgs = enc._upload(frames)
+    delta = frame_ops.split_planes(imgs[:1], SHIFT)
+    pd = frame_ops.predict(delta, None, make_preview=False)
+    delta = frame_ops.FramePlanes(high=delta.high[0], low=delta.low[0])
+    return pd, frame_ops.predict(frame_ops.split_planes(imgs, SHIFT), delta)
+
+
+def check_filter_chain(frames: np.ndarray, dev) -> dict:
+    """The device filter chain (split, decision histograms, delta and CG
+    residuals, previews) on the card equals the CPU's, on 8 crops of 256^2
+    from the corpus after a delta frame."""
+    sub = np.ascontiguousarray(frames[:9, 256:512, 384:640])
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        _pd, p = fpv1_predicted(sub, d)
+        outs.append((p.flags, p.high.cpu(), p.low.cpu(), p.preview.cpu()))
+    (fc, *tc), (fp, *tp) = outs
+    err = max_err(tc, tp)
+    if fc != fp or err:
+        raise AssertionError(f"FPV1 filter chain: card != CPU ({err})")
+    return dict(frames=list(sub.shape), flags=fc, max_abs_err=err)
+
+
+def check_cg_flat(frames: np.ndarray, dev) -> list[dict]:
+    """K4 against its plain version at the shapes the main path launches
+    it: the delta frame's residual [1, H, W] and the CG frames' [k, H, W]
+    of the first 64 corpus frames (one plain run over all of them: its
+    chain is H*W steps whatever the batch), and 4 x 256^2.  Exact, and
+    equal to the planes before the CG residual.  Bound: 1 byte in and 1
+    out per pixel at 3.35 TB/s; its chain, H*W dependent steps per frame
+    (``ns_per_step``)."""
+    pd, p = fpv1_predicted(frames, dev)
+    cg = [i for i, f in enumerate(p.flags) if f & frame_ops.FrameFlags.USE_CG]
+    parts = ([("delta frame", pd.high)]
+             if pd.flags[0] & frame_ops.FrameFlags.USE_CG else [])
+    parts.append((f"{len(cg)} CG frames", p.high[cg].contiguous()))
+    both = torch.cat([x for _n, x in parts])
+    plain, plain_once = timed_once(lambda: predictors.cg_flat_decode_ref(both))
+    rng = np.random.default_rng(2)
+    small = torch.from_numpy(rng.integers(0, 256, (4, 256, 256), np.int64)
+                             .astype(np.uint8)).to(dev)
+    small_res = predictors.cg_flat_encode(small)
+    small_plain, small_once = timed_once(
+        lambda: predictors.cg_flat_decode_ref(small_res))
+    rows, start = [], 0
+    for name, res in parts:
+        ref = plain[start : start + res.shape[0]]
+        start += res.shape[0]
+        rows.append((name, res, ref, plain_once, "one run over "
+                     + str(list(both.shape))))
+    rows.append(("4 x 256^2 random", small_res, small_plain, small_once,
+                 "one run"))
+    out = []
+    for name, res, ref, once, timing in rows:
+        got = predictors.cg_flat_decode(res)
+        err = max_err((got,), (ref,))
+        if err or not torch.equal(predictors.cg_flat_encode(got), res):
+            raise AssertionError(f"K4 wrong on {name}: {err}")
+        b, r, x = res.shape
+        row = dict(case=f"{name} {list(res.shape)}",
+                   ms=cuda_ms(lambda: predictors.cg_flat_decode(res), 5),
+                   plain_ms=once, plain_timing=timing,
+                   bound_ms=2 * res.numel() / HBM_BYTES_PER_MS,
+                   chain_steps=r * x, max_abs_err=err)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["ns_per_step"] = row["ms"] * 1e6 / (r * x)
+        print("cg_flat", json.dumps(row), flush=True)
+        out.append(row)
+    return out
+
+
+def expected_k4(data: bytes) -> int:
+    """K4 launches of ``decode_file`` on an FPV1 file of one decode batch:
+    one for a CG delta frame, one for the batch if a frame is CG."""
+    delta_cg = bool(data[13] & frame_ops.FrameFlags.USE_CG)
+    frames_cg = any(
+        data[container.parse_frame_chunk(data, off).main_start]
+        & frame_ops.FrameFlags.USE_CG
+        for off in container.parse_footer(data))
+    return int(delta_cg) + int(frames_cg)
+
+
+def fpv1_split(frames: np.ndarray, data: bytes, dev) -> dict:
+    """Where an FPV1 round trip's time goes, each part synchronized on its
+    own: the encode's device step (upload, filter chain, download, in
+    ``ENCODE_BATCH`` steps) and its brotli (every frame's chunk on
+    ``FPV1_THREADS`` threads); the decode's brotli (every frame's planes
+    into the host batch on those threads) and its device step (upload,
+    K4, delta add, combine, download)."""
+    enc = fpv1_encoder.Encoder(num_threads=0, shift=SHIFT, device=dev)
+    enc.init(frames[0], W, H, lambda d, p: None)
+
+    def enc_device():
+        items = []
+        for s in range(0, len(frames), fpv1_encoder.ENCODE_BATCH):
+            imgs = enc._upload(frames[s : s + fpv1_encoder.ENCODE_BATCH])
+            items += fpv1_encoder._predicted_frames(frame_ops.predict(
+                frame_ops.split_planes(imgs, SHIFT), enc._delta))
+        return items
+
+    items, dev_ms = timed_once(enc_device)
+    ra = RandomAccessDecoder(device=dev)
+    ra.init(data)
+    mains = [ra._main(i) for i in range(ra.numframes)]
+    n = len(mains)
+    high = container._host_batch(n, H * W, dev)
+    low = container._host_batch(n, H * W, dev)
+    flags = [0] * n
+    with ThreadPoolExecutor(FPV1_THREADS) as pool:
+        _c, brotli_enc_ms = timed_once(
+            lambda: list(pool.map(fpv1_encoder._frame_chunk, items)))
+
+        def parse(j):
+            flags[j] = container.parse_image(mains[j], W, H,
+                                             high[j].numpy(), low[j].numpy())
+
+        _p, brotli_dec_ms = timed_once(lambda: list(pool.map(parse,
+                                                             range(n))))
+
+    def dec_device():
+        planes = frame_ops.FramePlanes(
+            high=high.reshape(n, H, W).to(dev, non_blocking=True),
+            low=low.reshape(n, H, W).to(dev, non_blocking=True), flags=flags)
+        out = frame_ops.unpredict(planes, ra._delta)
+        return fpv1_decoder._to_host_u16(
+            frame_ops.combine_planes(out.high, out.low))
+
+    got, dec_dev_ms = timed_once(dec_device)
+    if not np.array_equal(got, frames << SHIFT):
+        raise AssertionError("FPV1 split: the device step's frames differ")
+    return dict(encode_device_step_s=dev_ms / 1e3,
+                encode_brotli_s=brotli_enc_ms / 1e3,
+                decode_brotli_s=brotli_dec_ms / 1e3,
+                decode_device_step_s=dec_dev_ms / 1e3,
+                brotli_threads=FPV1_THREADS)
+
+
+def check_fpv1_reader(data: bytes, out: np.ndarray, dev) -> dict:
+    """Random access, previews and the streaming decoder on the FPV1 main
+    path's file, against its whole decode."""
+    ra = RandomAccessDecoder(device=dev)
+    if not ra.init(data):
+        raise AssertionError("FPV1 file did not open")
+    row = {}
+    for i in (0, FPV1_FRAMES // 2, FPV1_FRAMES - 1):
+        got, ms = timed_once(lambda: ra.decode_frame(i))
+        row[f"decode_frame_{i}_s"] = ms / 1e3
+        if not np.array_equal(got, out[i]):
+            raise AssertionError(f"FPV1 decode_frame({i}) != full decode")
+    high = torch.from_numpy((out >> 8).astype(np.uint8)).to(dev)
+    want = generate_preview(high).cpu().numpy()
+    pv, ms = timed_once(lambda: [ra.decode_preview(i)
+                                 for i in range(ra.numframes)])
+    row["decode_preview_each_s"] = ms / 1e3 / ra.numframes
+    if not np.array_equal(np.stack(pv), want):
+        raise AssertionError("FPV1 previews differ from the decoded frames'")
+    got = []
+    sd = StreamingDecoder(device=dev)
+
+    def cb(ok, frame, xs, ys, p):
+        if not ok:
+            raise AssertionError("FPV1 streaming decoder failed a frame")
+        got.append(frame)
+
+    _n, ms = timed_once(lambda: [sd.decode(data[s : s + (1 << 20)], cb)
+                                 for s in range(0, len(data), 1 << 20)])
+    row["streaming_1mib_s"] = ms / 1e3
+    if not np.array_equal(np.stack(got), out):
+        raise AssertionError("FPV1 streaming decoder frames differ")
+    return row
+
+
+def check_fpv1(frames: np.ndarray, dev, card: str) -> dict | None:
+    """The FPV1 phase; prints the ``fpv1`` line -> the K4 row of the
+    kernels line (None without libbrotli)."""
+    sub = np.ascontiguousarray(frames[:FPV1_FRAMES])
+    row = dict(card=card, frames=list(sub.shape), shift=SHIFT,
+               brotli_threads=FPV1_THREADS,
+               filter_chain=check_filter_chain(frames, dev))
+    cg_rows = check_cg_flat(sub, dev)
+    if not brotli.available():
+        row["brotli"] = "absent: the system libbrotli did not load; K4 and " \
+                        "the filter chain were checked, the round trip not"
+        print("fpv1", json.dumps(row), flush=True)
+        return None
+
+    def round_trip():
+        enc_s, dec_s = [], []
+        for _ in range(3):
+            data, ms = timed_once(lambda: encode_file(
+                sub, shift=SHIFT, num_threads=FPV1_THREADS, device=dev))
+            enc_s.append(ms / 1e3)
+        for _ in range(3):
+            out, ms = timed_once(lambda: decode_file(
+                data, num_threads=FPV1_THREADS, device=dev))
+            dec_s.append(ms / 1e3)
+        return data, out, enc_s, dec_s
+
+    (data, out, enc_s, dec_s), launches = counted(
+        "fpv1 main path", ("cg_flat_decode",), round_trip)
+    if not np.array_equal(out, sub << SHIFT):
+        raise AssertionError("FPV1 main path round trip is not lossless")
+    if launches["cg_flat_decode"] != 3 * expected_k4(data):
+        raise AssertionError(f"FPV1 K4 launches {launches}, want 3 x "
+                             f"{expected_k4(data)}")
+    mpix = sub.size / 1e6
+    row.update(bytes=len(data), bits_per_pixel=len(data) * 8 / sub.size,
+               encode_s=enc_s, decode_s=dec_s,
+               encode_mpix_s=mpix / statistics.median(enc_s),
+               decode_mpix_s=mpix / statistics.median(dec_s),
+               launches=launches, lossless=True)
+    small = testdata.plasma_frames(5, 96, 128, bits=BITS, seed=5)
+    kw = dict(shift=SHIFT, num_threads=2)
+    if encode_file(small, device=dev, **kw) != encode_file(small,
+                                                           device="cpu", **kw):
+        raise AssertionError("FPV1: card and CPU wrote different bytes")
+    with np.load(GOLDEN / "inputs.npz") as z:
+        drift = z["drift"]
+    with open(GOLDEN / "hashes.json") as f:
+        pin = json.load(f)["v1_drift.fpv"]
+
+    def golden():
+        got = decode_file((GOLDEN / "v1_drift.fpv").read_bytes(), device=dev)
+        if not np.array_equal(got, drift << 4):
+            raise AssertionError("golden v1_drift.fpv did not decode exactly")
+        again = encode_file(drift, shift=4, num_threads=0, device=dev)
+        if hashlib.sha256(again).hexdigest() != pin:
+            raise AssertionError("golden v1_drift.fpv: the card's bytes differ")
+
+    counted("fpv1 golden", (), golden)
+    reader, _l = counted("fpv1 random access, previews, streaming",
+                         ("cg_flat_decode",),
+                         lambda: check_fpv1_reader(data, out, dev))
+    row.update(reader=reader, small_file="card bytes == CPU bytes",
+               golden="v1_drift.fpv decoded exactly, re-encoded to its pin",
+               split=fpv1_split(sub, data, dev))
+    print("fpv1", json.dumps(row), flush=True)
+    k4 = cg_rows[-2]  # the CG frames' batch launch (the last is 4 x 256^2)
+    return dict(
+        name="cg_flat_decode", route="cuda",
+        source="fpv_tpu_torch/csrc/cg_flat_decode.cu",
+        replaces="fpv_tpu/models/predictors.py:103",
+        replaces_note="a host scan of the JAX package, not a TPU kernel",
+        launches=launches["cg_flat_decode"],
+        max_abs_err=max(r["max_abs_err"] for r in cg_rows),
+        ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
+        bound_by="bytes", bound_share=k4["bound_share"], library_ms=None,
+        shape=k4["case"], chain_steps=k4["chain_steps"],
+        ns_per_step=k4["ns_per_step"], cases=cg_rows)
+
+
 def main() -> None:
     # The run uses one card: only the first visible one is made visible,
     # before CUDA starts, so the device count reported is the card used.
@@ -857,7 +1145,7 @@ def main() -> None:
         return data, out, t_enc, time.perf_counter() - t0
 
     (data, out, t_enc, t_dec), launches = counted(
-        "main path", tuple(kernels.LAUNCHES), round_trip
+        "main path", FPVT_KERNELS, round_trip
     )
     if out.shape != frames.shape or not np.array_equal(out, frames << SHIFT):
         raise AssertionError("main path round trip is not lossless")
@@ -911,7 +1199,10 @@ def main() -> None:
     hubs.update(check_replay(data, out, dev))
     print("hubs", json.dumps(hubs), flush=True)
     print("card fuzz", json.dumps(check_fuzz(data, out, dev)), flush=True)
-    del out
+    del out, data
+    torch.cuda.empty_cache()
+
+    k4_row = check_fpv1(frames, dev, card)
 
     err = max(r["max_abs_err"] for r in rans_rows + [grouped])
 
@@ -959,7 +1250,7 @@ def main() -> None:
              bound_ms=cg_rows[0]["bound_ms"], bound_by="bytes",
              bound_share=cg_rows[0]["bound_share"],
              library_ms=None, shape=cg_rows[0]["case"], cases=cg_rows),
-    ]}
+    ] + ([k4_row] if k4_row else [])}
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -55,9 +55,16 @@ def split_planes(img: torch.Tensor, shift: int = 0, big_endian: bool = False):
     Replicates the import paths of Frame's ctor exactly, including the
     rotate-based combined endian-swap + shift formula
     (fusion_power_video.cc:405-417).  For ``shift==8`` the low plane is
-    all-zero and callers treat it as absent.
+    all-zero and callers treat it as absent.  uint8 input is Frame's 8-bit
+    ctor (fusion_power_video.cc:453-465): the samples are the high plane
+    and there is no low plane, as the uint16 shift-8 split of the widened
+    samples gives.
     """
     validate_shift(shift, big_endian)
+    if img.dtype == torch.uint8:
+        nonzero_low = torch.zeros(img.shape[0], dtype=torch.bool,
+                                  device=img.device)
+        return img, torch.zeros_like(img), nonzero_low
     img = img.to(torch.int32) & 0xFFFF
     if big_endian:
         if shift == 0:
@@ -88,6 +95,25 @@ def combine_planes(high: torch.Tensor, low: torch.Tensor) -> torch.Tensor:
     """(high, low) u8 planes -> int32 u16 samples
     (fusion_power_video.cc:341-343)."""
     return (high.to(torch.int32) << 8) | low.to(torch.int32)
+
+
+def combine_planes_delta(high: torch.Tensor, low: torch.Tensor,
+                         delta_high: torch.Tensor,
+                         delta_low: torch.Tensor) -> torch.Tensor:
+    """Delta-add + combine (fusion_power_video.cc:335-339): each plane
+    plus the delta frame's, mod 256, then combined to int32 u16 samples."""
+    return combine_planes(high + delta_high, low + delta_low)
+
+
+def unextract(img: torch.Tensor, shift: int = 0,
+              big_endian: bool = False) -> torch.Tensor:
+    """u16 samples (any integer dtype) -> the raw u16 words the camera
+    emitted, as int32: shift right, then swap the bytes of a big-endian
+    stream (fusion_power_video.cc:850-862)."""
+    u = (img.to(torch.int32) & 0xFFFF) >> shift
+    if big_endian:
+        u = ((u << 8) | (u >> 8)) & 0xFFFF
+    return u
 
 
 def to_int16(v: torch.Tensor) -> torch.Tensor:

@@ -29,14 +29,15 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "fpv_tpu_torch"
-SOURCES = ("rans_encode.cu", "rans_decode.cu", "cg2d_decode.cu")
+SOURCES = ("rans_encode.cu", "rans_decode.cu", "cg2d_decode.cu",
+           "cg_flat_decode.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 LAUNCHES = {"rans_encode_chain": 0, "rans_encode_place": 0,
-            "rans_decode": 0, "cg2d_decode": 0}
+            "rans_decode": 0, "cg2d_decode": 0, "cg_flat_decode": 0}
 
 _BUILD_LOCK = threading.RLock()  # the build and the load of the library
 _COUNT_LOCK = threading.Lock()  # LAUNCHES updates
@@ -55,6 +56,8 @@ _SIGNATURES = {
     "fpvt_rans_decode": (_P, _I, _I, _I, _P),
     # res, out, b, h, w, stream
     "fpvt_cg2d_decode": (_P, _P, _I, _I, _I, _P),
+    # res, out, b, rows, x, stream
+    "fpv1_cg_flat_decode": (_P, _P, _I, _I, _I, _P),
 }
 
 

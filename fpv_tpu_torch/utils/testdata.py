@@ -2,7 +2,8 @@
 
 Same generators, seeds and values as ``fpv_tpu/utils/testdata.py``: a
 bright drifting blob ("plasma") over a static background with sensor
-noise, and incompressible noise.
+noise, incompressible noise, ramps and constant frames, and raw capture
+bytes.
 """
 
 from __future__ import annotations
@@ -50,3 +51,32 @@ def noise_frames(
     """Incompressible uniform noise."""
     rng = np.random.default_rng(seed)
     return rng.integers(0, 1 << bits, size=(n, ysize, xsize), dtype=np.uint16)
+
+
+def ramp_frames(n: int, ysize: int, xsize: int) -> np.ndarray:
+    """Deterministic diagonal ramps (like columnar_batch_decoder_test.cc:34-47)."""
+    yy, xx = np.mgrid[0:ysize, 0:xsize]
+    base = (xx * 7 + yy * 13).astype(np.uint16)
+    return np.stack([(base + 31 * i).astype(np.uint16) for i in range(n)])
+
+
+def constant_frames(n: int, ysize: int, xsize: int, value: int = 0x1234) -> np.ndarray:
+    """Degenerate constant frames (exercise zero-entropy decision paths)."""
+    return np.full((n, ysize, xsize), value, dtype=np.uint16)
+
+
+def to_raw_bytes(frames: np.ndarray, shift: int = 0, big_endian: bool = False) -> bytes:
+    """Frames (right-aligned values) -> raw capture bytes as a camera would
+    emit them (values NOT pre-shifted; ``shift`` is the encoder's)."""
+    frames = np.asarray(frames, dtype=np.uint16)
+    dt = np.dtype(">u2" if big_endian else "<u2")
+    return frames.astype(dt).tobytes()
+
+
+def raw_to_frames(
+    raw: bytes, ysize: int, xsize: int, big_endian: bool = False
+) -> np.ndarray:
+    dt = np.dtype(">u2" if big_endian else "<u2")
+    arr = np.frombuffer(raw, dtype=dt).astype(np.uint16)
+    n = arr.size // (ysize * xsize)
+    return arr[: n * ysize * xsize].reshape(n, ysize, xsize)

@@ -454,3 +454,127 @@ def test_mutation_fuzz_on_card_then_clean_decode(cuda):
     assert kernels.LAUNCHES["rans_decode"] and kernels.LAUNCHES["cg2d_decode"]
     np.testing.assert_array_equal(
         fpv_tpu_torch.decode_file_fpvt(data, device=cuda), frames << 4)
+
+
+# -- the FPV1 profile: K4 (flat CG inverse), the device filter chain ------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape",
+    [(3, 1, 1), (2, 1, 9), (2, 2, 7), (3, 9, 1), (1, 3, 5), (2, 6, 5),
+     # the walk's blocked path starts at 64 columns: just below, at, and
+     # with a partial last block
+     (1, 40, 63), (2, 65, 64), (1, 9, 64), (1, 70, 200),
+     # a grown preview buffer (56 entries at stride 7: 8 rows) and the
+     # card check's batch
+     (1, 8, 7), (4, 256, 256)],
+    ids=str,
+)
+def test_cg_flat_kernel_matches_plain(cuda, shape):
+    """K4 equals its plain version (run on the card) and inverts the flat
+    CG residual, exactly; random residuals too."""
+    from fpv_tpu_torch.models import predictors as tpred
+
+    rng = np.random.default_rng(sum(shape))
+    plane = torch.from_numpy(
+        rng.integers(0, 256, shape, np.int64).astype(np.uint8)).to(cuda)
+    res = tpred.cg_flat_encode(plane)
+    got = tpred.cg_flat_decode(res)
+    torch.testing.assert_close(got, tpred.cg_flat_decode_ref(res), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(got, plane, rtol=0, atol=0)
+    if plane.numel() <= 4096:
+        noise = torch.from_numpy(
+            rng.integers(0, 256, shape, np.int64).astype(np.uint8)).to(cuda)
+        torch.testing.assert_close(tpred.cg_flat_decode(noise),
+                                   tpred.cg_flat_decode_ref(noise), rtol=0,
+                                   atol=0)
+
+
+@pytest.mark.cuda
+def test_cg_flat_kernel_full_frames_and_unaligned_input(cuda):
+    """K4 on two 1024^2 frames inverts the residual; a residual that starts
+    off a 16-byte boundary decodes the same."""
+    from fpv_tpu_torch.models import predictors as tpred
+    from fpv_tpu_torch.utils import kernels
+
+    rng = np.random.default_rng(1)
+    plane = torch.from_numpy(
+        rng.integers(0, 256, (2, 1024, 1024), np.int64).astype(np.uint8)
+    ).to(cuda)
+    kernels.reset_launches()
+    torch.testing.assert_close(
+        tpred.cg_flat_decode(tpred.cg_flat_encode(plane)), plane, rtol=0,
+        atol=0)
+    assert kernels.LAUNCHES["cg_flat_decode"] == 1
+    small = plane[:, :37, :53].contiguous()
+    res = tpred.cg_flat_encode(small)
+    buf = torch.zeros(res.numel() + 32, dtype=torch.uint8, device=cuda)
+    view = buf[5 : 5 + res.numel()].view(res.shape)
+    view.copy_(res)
+    torch.testing.assert_close(tpred.cg_flat_decode(view), small, rtol=0,
+                               atol=0)
+
+
+@pytest.mark.cuda
+def test_fpv1_filter_chain_on_card_equals_cpu(cuda):
+    """split, decision histograms, delta and CG residuals and previews of a
+    batch on the card equal the CPU's; unpredict (K4) inverts them."""
+    from fpv_tpu_torch.api import frame as tframe
+    from fpv_tpu_torch.models import heuristics as theur
+
+    frames = testdata.plasma_frames(6, 96, 128, bits=12, seed=3)
+    frames[2] = 0x123  # constant: entropy 0, no delta, no CG
+    outs = []
+    for dev in ("cpu", cuda):
+        imgs = torch.from_numpy(frames.view(np.int16)).to(dev)
+        imgs = imgs.to(torch.int32) & 0xFFFF
+        planes = tframe.split_planes(imgs[1:], 4, False)
+        delta = tframe.split_planes(imgs[:1], 4, False)
+        delta = tframe.FramePlanes(high=delta.high[0], low=delta.low[0])
+        counts = theur.decision_counts(planes.high, planes.high - delta.high)
+        p = tframe.predict(planes, delta)
+        back = tframe.unpredict(p, delta)
+        outs.append([counts.cpu(), p.flags, p.high.cpu(), p.low.cpu(),
+                     p.preview.cpu(), back.high.cpu(), back.low.cpu()])
+    cpu, card = outs
+    assert cpu[1] == card[1]
+    for a, b in zip(cpu[:1] + cpu[2:], card[:1] + card[2:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    hi = torch.from_numpy((frames[1:] << 4 >> 8).astype(np.uint8))
+    torch.testing.assert_close(card[5], hi, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift,bits,big_endian", [(4, 12, False),
+                                                   (0, 16, True),
+                                                   (8, 8, False)])
+def test_fpv1_round_trip_on_card(cuda, shift, bits, big_endian):
+    """FPV1 on the card: the bytes equal the CPU's (held to the JAX
+    package's by test_torch_fpv1.py); decode_file, the streaming decoder
+    and random access with previews return the frames; K4 ran."""
+    from fpv_tpu_torch.utils import kernels
+
+    frames = testdata.plasma_frames(7, 64, 96, bits=bits, seed=2)
+    kw = dict(shift=shift, big_endian=big_endian, num_threads=2)
+    kernels.reset_launches()
+    on_card = fpv_tpu_torch.encode_file(frames, device=cuda, **kw)
+    assert on_card == fpv_tpu_torch.encode_file(frames, device="cpu", **kw)
+    want = fpv_tpu_torch.decode_file(on_card, device="cpu")
+    np.testing.assert_array_equal(
+        fpv_tpu_torch.decode_file(on_card, num_threads=3, device=cuda), want)
+    got = []
+    sd = fpv_tpu_torch.StreamingDecoder(device=cuda)
+    for s in range(0, len(on_card), 1000):
+        sd.decode(on_card[s : s + 1000],
+                  lambda ok, f, xs, ys, p: got.append(f) if ok else None)
+    np.testing.assert_array_equal(np.stack(got), want)
+    ra = fpv_tpu_torch.RandomAccessDecoder(device=cuda)
+    rc = fpv_tpu_torch.RandomAccessDecoder(device="cpu")
+    assert ra.init(on_card) and rc.init(on_card)
+    for i in (6, 0, 3):
+        np.testing.assert_array_equal(ra.decode_frame(i), want[i])
+        np.testing.assert_array_equal(ra.decode_preview(i),
+                                      rc.decode_preview(i))
+    assert kernels.LAUNCHES["cg_flat_decode"] > 0

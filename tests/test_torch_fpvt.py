@@ -172,9 +172,14 @@ def test_import_leaves_out_jax_and_fpv_tpu():
         "import fpv_tpu_torch, fpv_tpu_torch.utils.testdata\n"
         "import fpv_tpu_torch.utils.kernels, fpv_tpu_torch.ops.rans_cuda\n"
         "import fpv_tpu_torch.api.multistream\n"
+        "import fpv_tpu_torch.api.encoder, fpv_tpu_torch.api.decoder\n"
+        "import fpv_tpu_torch.api.frame, fpv_tpu_torch.format.container\n"
+        "import fpv_tpu_torch.format.bits, fpv_tpu_torch.entropy.brotli\n"
+        "import fpv_tpu_torch.models.heuristics\n"
+        "import fpv_tpu_torch.models.predictors\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib',"
-        " 'fpv_tpu'))\n"
+        " 'fpv_tpu', 'fpv_native'))\n"
         "print(','.join(bad))\n"
     )
     out = subprocess.run(

@@ -49,3 +49,13 @@ def test_port_writer_matches_golden_pin(golden_inputs, name, key, shift):
         device="cpu",
     )
     assert hashlib.sha256(data).hexdigest() == pins[name]
+
+
+def test_port_fpv1_writer_matches_golden_pin(golden_inputs):
+    """The FPV1 fixture's inputs re-encode to its pin (the JAX package's
+    bytes; the system libbrotli at quality 1)."""
+    with open(GOLDEN / "hashes.json") as f:
+        pins = json.load(f)
+    data = fpv_tpu_torch.encode_file(golden_inputs["drift"], shift=4,
+                                     num_threads=0, device="cpu")
+    assert hashlib.sha256(data).hexdigest() == pins["v1_drift.fpv"]
