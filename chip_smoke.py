@@ -59,10 +59,26 @@
    streaming decoder (1 MiB pieces); the time split (brotli threads, the
    device step, K4).  One ``fpv1`` JSON line.  Without the system
    libbrotli the phase checks the filter chain and K4 only and says so.
-11. Prints a JSON line of the kernels, then the result line
+11. Transcoding and the tools, on the FPV1 phase's 64-frame file:
+   ``transcode_to_fpvt`` (shift 4) and ``transcode_to_fpv1`` of its
+   output, a warm-up and three timed calls each, counted (K4 once per
+   FPVT batch plus the delta frame's, K1a/K1b per batch and coded delta
+   plane; K2 per batch plus the delta section's, K3 where a section
+   picked CG2D); FPV1 -> FPVT -> FPV1 returns the input file and the FPVT
+   decodes to the frames; card bytes equal CPU bytes on 9 x 64 x 128;
+   the decode/encode time split of each direction; the five tools as
+   parallel subprocesses with ``--device cuda`` (encode both profiles of
+   9 raw corpus frames against the in-process encode, decode, transcode
+   both ways, ``inspect --check``, ``benchmark`` both profiles,
+   ``--device cpu`` against ``cuda`` bytes);
+   ``ColumnarBatchEncoder``/``Decoder`` on 32 corpus frames (FULL, MSB8,
+   PREVIEW exact, one K4 launch per batch, card arrays equal CPU arrays
+   on a crop); the Arrow round trip when pyarrow is installed (which
+   happened is printed).  One ``transcode`` JSON line.
+12. Prints a JSON line of the kernels, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
-Each path (4-10) is driven with the launch counts set to 0 just
+Each path (4-11) is driven with the launch counts set to 0 just
 before it and read just after; a kernel the path needs that it did not
 launch fails the run.  Any failure raises (non-zero exit) and prints no
 result line.
@@ -76,7 +92,10 @@ import os
 import pathlib
 import statistics
 import struct
+import importlib.util
 import subprocess
+import sys
+import tempfile
 import time
 
 from concurrent.futures import ThreadPoolExecutor
@@ -103,6 +122,12 @@ from fpv_tpu_torch.api.fpvt_codec import (
     pv_chunk_len,
 )
 from fpv_tpu_torch.api.multistream import MultiStreamDecoder, MultiStreamEncoder
+from fpv_tpu_torch.api.transcode import transcode_to_fpv1, transcode_to_fpvt
+from fpv_tpu_torch.batch.columnar import (
+    ColumnarBatchDecoder,
+    ColumnarBatchEncoder,
+    ImageType,
+)
 from fpv_tpu_torch.entropy.plane_codec import (
     _hist_flat,
     _to_block_symbols,
@@ -909,15 +934,19 @@ def check_cg_flat(frames: np.ndarray, dev) -> list[dict]:
     return out
 
 
+def fpv1_cg_flags(data: bytes) -> tuple[bool, list[bool]]:
+    """An FPV1 file's USE_CG flags: (the delta frame's, each frame's)."""
+    cg = frame_ops.FrameFlags.USE_CG
+    return bool(data[13] & cg), [
+        bool(data[container.parse_frame_chunk(data, off).main_start] & cg)
+        for off in container.parse_footer(data)]
+
+
 def expected_k4(data: bytes) -> int:
     """K4 launches of ``decode_file`` on an FPV1 file of one decode batch:
     one for a CG delta frame, one for the batch if a frame is CG."""
-    delta_cg = bool(data[13] & frame_ops.FrameFlags.USE_CG)
-    frames_cg = any(
-        data[container.parse_frame_chunk(data, off).main_start]
-        & frame_ops.FrameFlags.USE_CG
-        for off in container.parse_footer(data))
-    return int(delta_cg) + int(frames_cg)
+    delta_cg, frames_cg = fpv1_cg_flags(data)
+    return int(delta_cg) + int(any(frames_cg))
 
 
 def fpv1_split(frames: np.ndarray, data: bytes, dev) -> dict:
@@ -1010,9 +1039,9 @@ def check_fpv1_reader(data: bytes, out: np.ndarray, dev) -> dict:
     return row
 
 
-def check_fpv1(frames: np.ndarray, dev, card: str) -> dict | None:
-    """The FPV1 phase; prints the ``fpv1`` line -> the K4 row of the
-    kernels line (None without libbrotli)."""
+def check_fpv1(frames: np.ndarray, dev, card: str) -> tuple:
+    """The FPV1 phase; prints the ``fpv1`` line -> (the K4 row of the
+    kernels line, the 64-frame file), both None without libbrotli."""
     sub = np.ascontiguousarray(frames[:FPV1_FRAMES])
     row = dict(card=card, frames=list(sub.shape), shift=SHIFT,
                brotli_threads=FPV1_THREADS,
@@ -1022,7 +1051,7 @@ def check_fpv1(frames: np.ndarray, dev, card: str) -> dict | None:
         row["brotli"] = "absent: the system libbrotli did not load; K4 and " \
                         "the filter chain were checked, the round trip not"
         print("fpv1", json.dumps(row), flush=True)
-        return None
+        return None, None
 
     def round_trip():
         enc_s, dec_s = [], []
@@ -1076,7 +1105,7 @@ def check_fpv1(frames: np.ndarray, dev, card: str) -> dict | None:
                split=fpv1_split(sub, data, dev))
     print("fpv1", json.dumps(row), flush=True)
     k4 = cg_rows[-2]  # the CG frames' batch launch (the last is 4 x 256^2)
-    return dict(
+    k4_row = dict(
         name="cg_flat_decode", route="cuda",
         source="fpv_tpu_torch/csrc/cg_flat_decode.cu",
         replaces="fpv_tpu/models/predictors.py:103",
@@ -1087,6 +1116,359 @@ def check_fpv1(frames: np.ndarray, dev, card: str) -> dict | None:
         bound_by="bytes", bound_share=k4["bound_share"], library_ms=None,
         shape=k4["case"], chain_steps=k4["chain_steps"],
         ns_per_step=k4["ns_per_step"], cases=cg_rows)
+    return k4_row, data
+
+
+TC_FPB = 16  # transcode_to_fpvt's default frames per batch
+CLI_FRAMES = 9  # raw corpus frames the command-line tools encode
+SMALL = (9, 64, 128)  # the small file of the card-vs-CPU checks
+COL_FRAMES, COL_FPB = 32, 10  # columnar: tests/test_batch.py's batch size
+REPO = pathlib.Path(__file__).resolve().parent
+
+
+def runs3(fn) -> tuple:
+    """A warm-up call of ``fn``, then three timed -> (the last result, the
+    three wall times in s, each ending in a synchronize)."""
+    fn()
+    out, secs = None, []
+    for _ in range(3):
+        out, ms = timed_once(fn)
+        secs.append(ms / 1e3)
+    return out, secs
+
+
+def transcode_k4(fpv1: bytes, fpb: int) -> int:
+    """K4 launches of one ``transcode_to_fpvt`` of an FPV1 file whose
+    frame 0 is its delta frame: one for a CG delta frame (at open), one
+    per FPVT batch whose decode holds a CG frame (frame 0 decodes with
+    the first batch)."""
+    delta_cg, cg = fpv1_cg_flags(fpv1)
+    chunks = [cg[: 1 + fpb]] + [cg[s : s + fpb]
+                                for s in range(1 + fpb, len(cg), fpb)]
+    return int(delta_cg) + sum(any(c) for c in chunks)
+
+
+def check_launches(path: str, got: dict, want: dict) -> None:
+    """``got`` (a counted run's launches) has ``want``'s counts, and no
+    launch of a kernel ``want`` leaves out."""
+    full = {name: want.get(name, 0) for name in got}
+    if got != full:
+        raise AssertionError(f"{path} launches {got}, want {full}")
+
+
+def run_tool(tool: str, args: list, stdin: bytes = b"",
+             device: str = "cuda") -> subprocess.CompletedProcess:
+    """``python -m fpv_tpu_torch.cli.<tool> args --device <device>`` from
+    the checkout; a non-zero exit fails with its stderr."""
+    p = subprocess.run(
+        [sys.executable, "-m", f"fpv_tpu_torch.cli.{tool}", *args,
+         "--device", device],
+        input=stdin, capture_output=True, cwd=REPO, timeout=600)
+    if p.returncode:
+        raise AssertionError(f"{tool} {args} --device {device}: exit "
+                             f"{p.returncode}: {p.stderr[-2000:]!r}")
+    return p
+
+
+def run_tools(jobs: dict) -> dict:
+    """name -> (tool, args, stdin[, device]) run at once, one process each
+    -> name -> (completed process, wall s)."""
+    def one(job):
+        t0 = time.perf_counter()
+        p = run_tool(*job)
+        return p, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futs = {name: pool.submit(one, job) for name, job in jobs.items()}
+        return {name: f.result() for name, f in futs.items()}
+
+
+def check_cli(frames: np.ndarray, dev) -> dict:
+    """The five tools in subprocesses on the card, all started at once:
+    ``encode`` (both profiles) of 9 raw corpus frames, equal to the same
+    encode in-process; ``decode`` of those files back to the raw bytes;
+    ``transcode`` of them both ways, equal to the in-process transcoder's
+    bytes; ``inspect --check`` on both; ``benchmark`` (both profiles) on a
+    small raw file, and on it ``encode --device cpu`` against ``--device
+    cuda`` in both profiles."""
+    sub = np.ascontiguousarray(frames[:CLI_FRAMES])
+    raw = testdata.to_raw_bytes(sub)
+    wri = FpvtWriter(W, H, SHIFT, device=dev, delta_is_frame0=True,
+                     narrow=False)
+    files = {
+        "fpv1": encode_file(sub, shift=SHIFT, num_threads=8, device=dev),
+        "fpvt": b"".join([wri.init(sub[0])] + [
+            wri.encode_batch(sub[s : s + wri.header.frames_per_batch])
+            for s in range(1, CLI_FRAMES, wri.header.frames_per_batch)]
+            + [wri.finish()]),
+    }
+    small = testdata.to_raw_bytes(
+        testdata.plasma_frames(*SMALL, bits=BITS, seed=5))
+    n, h, w = SMALL
+    geo = [str(W), str(H), "0", str(SHIFT)]
+    sgeo = [str(w), str(h), "0", str(SHIFT)]
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
+        small_path = pathlib.Path(tmp) / "small.raw"
+        small_path.write_bytes(small)
+        jobs = {
+            "transcode fpv1->fpvt": ("transcode", ["fpvt", str(SHIFT)],
+                                     files["fpv1"]),
+            "transcode fpvt->fpv1": ("transcode", ["fpv1"], files["fpvt"]),
+        }
+        for prof, data in files.items():
+            path = pathlib.Path(tmp) / prof
+            path.write_bytes(data)
+            jobs[f"encode {prof}"] = ("encode",
+                                      [*geo, "8", "--profile", prof], raw)
+            jobs[f"decode {prof}"] = ("decode", geo, data)
+            jobs[f"inspect {prof}"] = ("inspect", ["--check", str(path)])
+            jobs[f"benchmark {prof}"] = (
+                "benchmark", [str(small_path), *sgeo, "0", "4",
+                              "--profile", prof], b"")
+            for d in ("cuda", "cpu"):
+                jobs[f"small {prof} {d}"] = (
+                    "encode", [*sgeo, "2", "--profile", prof], small, d)
+        done = run_tools(jobs)
+    out = {name: p.stdout for name, (p, _secs) in done.items()}
+    for prof in files:
+        if out[f"encode {prof}"] != files[prof]:
+            raise AssertionError(f"cli encode {prof} != the in-process "
+                                 "encode")
+        if out[f"decode {prof}"] != raw:
+            raise AssertionError(f"cli decode of the {prof} file != raw")
+        if not out[f"inspect {prof}"].endswith(
+                b"check: ok (all batches decode)\n"):
+            raise AssertionError(f"cli inspect --check {prof} failed")
+        if not done[f"benchmark {prof}"][0].stderr.endswith(b"ok\n"):
+            raise AssertionError(f"cli benchmark {prof} did not end ok")
+        if out[f"small {prof} cuda"] != out[f"small {prof} cpu"]:
+            raise AssertionError(f"cli encode {prof}: --device cuda and "
+                                 "--device cpu wrote different bytes")
+    to_fpvt = out["transcode fpv1->fpvt"]
+    if to_fpvt != transcode_to_fpvt(files["fpv1"], shift=SHIFT, device=dev):
+        raise AssertionError("cli transcode fpvt != transcode_to_fpvt")
+    if transcode_to_fpv1(to_fpvt, device=dev) != files["fpv1"]:
+        raise AssertionError("cli transcode: FPV1 -> FPVT -> FPV1 != input")
+    if out["transcode fpvt->fpv1"] != transcode_to_fpv1(files["fpvt"],
+                                                        device=dev):
+        raise AssertionError("cli transcode fpv1 != transcode_to_fpv1")
+    return dict(raw_frames=list(sub.shape), small=list(SMALL),
+                bytes={prof: len(d) for prof, d in files.items()},
+                wall_s={name: secs for name, (_p, secs) in done.items()},
+                exact=True)
+
+
+def check_columnar(frames: np.ndarray, dev) -> dict:
+    """``ColumnarBatchEncoder`` on 32 corpus frames (batches of 10) and
+    ``ColumnarBatchDecoder`` as FULL (unshifted), MSB8 and PREVIEW on the
+    card, exact, with one K4 launch per batch holding a CG frame; on a
+    crop, the batches' arrays equal the CPU's."""
+    sub = np.ascontiguousarray(frames[:COL_FRAMES])
+
+    def encode(imgs, device):
+        out = []
+        h, w = imgs.shape[1:]
+        enc = ColumnarBatchEncoder(w, h, SHIFT, False,
+                                   lambda b: out.append(b) if b else None,
+                                   frames_per_batch=COL_FPB, device=device)
+        for i, img in enumerate(imgs):
+            enc.push_frame(i, img).result(timeout=600)
+        enc.join()
+        return out
+
+    batches, enc_ms = timed_once(lambda: encode(sub, dev))
+    lengths = [b.length for b in batches]
+    if lengths != [COL_FPB] * (COL_FRAMES // COL_FPB) + [COL_FRAMES % COL_FPB]:
+        raise AssertionError(f"columnar batch lengths {lengths}")
+    k4 = sum(any(f & frame_ops.FrameFlags.USE_CG for f in b._flags[: b.length])
+             for b in batches)
+    high = torch.from_numpy(((sub << SHIFT) >> 8).astype(np.uint8))
+    want = {ImageType.FULL: sub.reshape(COL_FRAMES, -1),
+            ImageType.MSB8: high.numpy().reshape(COL_FRAMES, -1),
+            ImageType.PREVIEW: generate_preview(high.to(dev)).cpu().numpy()
+            .reshape(COL_FRAMES, -1)}
+    row = dict(frames=list(sub.shape), frames_per_batch=COL_FPB,
+               batches=lengths, encode_s=enc_ms / 1e3, expected_k4=k4)
+    for type, unshift in ((ImageType.FULL, True), (ImageType.MSB8, False),
+                          (ImageType.PREVIEW, False)):
+        images = []
+
+        def decode():
+            dec = ColumnarBatchDecoder(type, unshift, images.append,
+                                       device=dev)
+            for b in batches:
+                dec.push_batch(b).result(timeout=600)
+            dec.join()
+
+        (_n, ms), launches = counted(f"columnar {type.name}",
+                                     ("cg_flat_decode",) if k4 else (),
+                                     lambda: timed_once(decode))
+        check_launches(f"columnar {type.name}", launches,
+                       {"cg_flat_decode": k4})
+        got = np.stack([img.data16() if type == ImageType.FULL
+                        else img.data8() for img in images])
+        if not np.array_equal(got, want[type]):
+            raise AssertionError(f"columnar {type.name} decode is not exact")
+        row[f"decode_{type.name.lower()}_s"] = ms / 1e3
+    crop = np.ascontiguousarray(frames[:12, :64, :96])
+    card, cpu = encode(crop, dev), encode(crop, "cpu")
+    if [b.length for b in card] != [b.length for b in cpu] or not all(
+            np.array_equal(x._buffer, y._buffer) for x, y in zip(card, cpu)):
+        raise AssertionError("columnar: card and CPU batches differ")
+    row.update(crop=list(crop.shape), crop_card_equals_cpu=True, exact=True)
+    return row
+
+
+def check_arrow(frames: np.ndarray, dev) -> dict:
+    """The Arrow round trip on 8 corpus crops of 256^2 on the card, with
+    one K4 launch per RecordBatch holding a CG plane, when pyarrow is
+    installed; which of the two happened is printed."""
+    if importlib.util.find_spec("pyarrow") is None:
+        print("arrow: pyarrow is not installed; the Arrow round trip was "
+              "not run", flush=True)
+        return dict(ran=False)
+    from fpv_tpu_torch.batch.arrow import ArrowEncoder, decode_record_batch
+
+    crop = np.ascontiguousarray(frames[:8, :256, :256])
+    h, w = crop.shape[1:]
+    rbs = []
+    enc = ArrowEncoder(w, h, SHIFT, False,
+                       lambda rb: rbs.append(rb) if rb else None,
+                       frames_per_batch=COL_FPB, device=dev)
+    for i, img in enumerate(crop):
+        enc.push_frame(i, img).result(timeout=600)
+    enc.join()
+    k4 = sum(rb.schema.metadata[b"deltaFrameCGPredicted"] == b"true"
+             or any(rb.column("cgPredicted").to_pylist()) for rb in rbs)
+    got, launches = counted(
+        "arrow", ("cg_flat_decode",) if k4 else (),
+        lambda: [f for rb in rbs for f in decode_record_batch(rb, device=dev)])
+    check_launches("arrow", launches, {"cg_flat_decode": k4})
+    if not np.array_equal(np.stack(got), crop << SHIFT):
+        raise AssertionError("arrow round trip is not exact")
+    print("arrow: pyarrow is installed; the Arrow round trip ran, exact",
+          flush=True)
+    return dict(ran=True, frames=list(crop.shape), record_batches=len(rbs),
+                launches=launches, exact=True)
+
+
+def transcode_split(data: bytes, fpvt_data: bytes, dev) -> dict:
+    """Where a transcode's time goes, each half synchronized on its own:
+    FPV1 -> FPVT as the FPV1 decode (open with the delta frame's K4,
+    brotli on 4 threads, one K4 per batch) and the FPVT writer on the
+    decoded device frames; FPVT -> FPV1 as the FPVT decode (K2, K3,
+    device frames) and the FPV1 encoder (device step, brotli on 4
+    threads) on them."""
+    fpb = TC_FPB
+
+    def fpv1_decode():
+        dec = RandomAccessDecoder(device=dev)
+        dec.init(data)
+        with ThreadPoolExecutor(4) as pool:
+            return [dec._decode_frames_device(range(s, min(s + fpb,
+                                                           dec.numframes)),
+                                              pool)
+                    for s in range(0, dec.numframes, fpb)]
+
+    parts, dec_ms = timed_once(fpv1_decode)
+    wri = FpvtWriter(W, H, SHIFT, False, fpb, CHUNK_LOG2, device=dev,
+                     delta_is_frame0=True, narrow=False)
+
+    def fpvt_encode():
+        wri._init_core(parts[0][:1] >> SHIFT, SHIFT, False)
+        for p in parts:
+            wri._encode_batch_core(p >> SHIFT, SHIFT, False, None)
+
+    _n, enc_ms = timed_once(fpvt_encode)
+    r = FpvtReader(fpvt_data, device=dev)
+
+    def fpvt_decode():
+        fins = [r._decode_parsed_batch_issue(r._parse_batch(off), b,
+                                             device_frames=True)
+                for off, b in r._batches]
+        return [fin()[0] for fin in fins]
+
+    frames, fdec_ms = timed_once(fpvt_decode)
+    enc = fpv1_encoder.Encoder(num_threads=4, shift=SHIFT, device=dev)
+    enc.init(r.delta_frame() >> SHIFT, W, H, lambda d, p: None)
+
+    def fpv1_encode():
+        for f in frames:
+            enc._compress_batch(f >> SHIFT, [(lambda d, p: None, None)]
+                                * f.shape[0])
+        enc.finish(lambda d, p: None)
+
+    _n, fenc_ms = timed_once(fpv1_encode)
+    return {"fpv1->fpvt": dict(fpv1_decode_s=dec_ms / 1e3,
+                               fpvt_encode_s=enc_ms / 1e3),
+            "fpvt->fpv1": dict(fpvt_decode_s=fdec_ms / 1e3,
+                               fpv1_encode_s=fenc_ms / 1e3)}
+
+
+def check_transcode(data: bytes, frames: np.ndarray, dev, card: str) -> dict:
+    """FPV1 -> FPVT -> FPV1 of the FPV1 phase's 64-frame file on the card
+    (a warm-up call and three timed each way, counted: K4 once per FPVT
+    batch plus the delta frame's, K1a/K1b per batch and coded delta plane;
+    then K2 per batch plus the delta section's, K3 where a section picked
+    CG2D), returning the input exactly; card bytes equal CPU bytes on a
+    small file; the tools, the columnar round trip and the Arrow round
+    trip.  Prints the ``transcode`` line."""
+    t_phase = time.perf_counter()
+    sub = frames[:FPV1_FRAMES]
+    mpix = sub.size / 1e6
+    k1 = ("rans_encode_chain", "rans_encode_place")
+    (fpvt_data, to_fpvt_s), l_fpvt = counted(
+        "transcode fpv1->fpvt", ("cg_flat_decode", *k1),
+        lambda: runs3(lambda: transcode_to_fpvt(data, shift=SHIFT,
+                                                device=dev)))
+    hdr = fpvt.Header.parse(fpvt_data)
+    if not hdr.delta_is_frame0 or hdr.shift != SHIFT:
+        raise AssertionError(f"transcoded header {hdr}")
+    want = expected_launches(fpvt_data)
+    calls = 4  # the warm-up and three timed
+    check_launches("transcode fpv1->fpvt", l_fpvt, {
+        "cg_flat_decode": calls * transcode_k4(data, TC_FPB),
+        "rans_encode_chain": calls * want["k1"],
+        "rans_encode_place": calls * want["k1"]})
+    if not np.array_equal(decode_file_fpvt(fpvt_data, device=dev),
+                          sub << SHIFT):
+        raise AssertionError("the transcoded FPVT does not decode to the "
+                             "frames")
+    (back, to_fpv1_s), l_fpv1 = counted(
+        "transcode fpvt->fpv1",
+        ("rans_decode",) + (("cg2d_decode",) if want["k3"] else ()),
+        lambda: runs3(lambda: transcode_to_fpv1(fpvt_data, device=dev)))
+    check_launches("transcode fpvt->fpv1", l_fpv1, {
+        "rans_decode": calls * want["k2"], "cg2d_decode": calls * want["k3"]})
+    if back != data:
+        raise AssertionError("FPV1 -> FPVT -> FPV1 did not return the input")
+    small = testdata.plasma_frames(*SMALL, bits=BITS, seed=5)
+    s1 = encode_file(small, shift=SHIFT, num_threads=2, device="cpu")
+    kw = dict(shift=SHIFT, frames_per_batch=4)
+    on_card = transcode_to_fpvt(s1, device=dev, **kw)
+    if (on_card != transcode_to_fpvt(s1, device="cpu", **kw)
+            or transcode_to_fpv1(on_card, device=dev) != s1
+            or transcode_to_fpv1(on_card, device="cpu") != s1):
+        raise AssertionError("transcode: card and CPU bytes differ")
+    row = dict(
+        card=card, frames=list(sub.shape), shift=SHIFT,
+        frames_per_batch=TC_FPB, fpv1_bytes=len(data),
+        fpvt_bytes=len(fpvt_data), to_fpvt_s=to_fpvt_s, to_fpv1_s=to_fpv1_s,
+        to_fpvt_mpix_s=mpix / statistics.median(to_fpvt_s),
+        to_fpv1_mpix_s=mpix / statistics.median(to_fpv1_s),
+        launches_per_call={
+            "fpv1->fpvt": {k: v // calls for k, v in l_fpvt.items()},
+            "fpvt->fpv1": {k: v // calls for k, v in l_fpv1.items()}},
+        round_trip="FPV1 -> FPVT -> FPV1 returned the input file",
+        small_file=f"{SMALL}: card bytes == CPU bytes both ways",
+        split=transcode_split(data, fpvt_data, dev))
+    row["cli"] = check_cli(frames, dev)
+    row["columnar"] = check_columnar(frames, dev)
+    row["arrow"] = check_arrow(frames, dev)
+    row["phase_s"] = time.perf_counter() - t_phase
+    print("transcode", json.dumps(row), flush=True)
+    return row
 
 
 def main() -> None:
@@ -1202,7 +1584,12 @@ def main() -> None:
     del out, data
     torch.cuda.empty_cache()
 
-    k4_row = check_fpv1(frames, dev, card)
+    k4_row, fpv1_data = check_fpv1(frames, dev, card)
+    if fpv1_data is None:
+        print("transcode: not run: the FPV1 phase had no libbrotli",
+              flush=True)
+    else:
+        check_transcode(fpv1_data, frames, dev, card)
 
     err = max(r["max_abs_err"] for r in rans_rows + [grouped])
 

@@ -9,7 +9,11 @@ many camera streams onto a card.  The FPV1 compatibility profile
 (``Encoder``, ``encode_file``, ``StreamingDecoder``,
 ``RandomAccessDecoder``, ``decode_file``) writes the JAX package's bytes
 with its filter chain on the card and brotli (the system libbrotli) on
-host threads.  It imports neither JAX nor ``fpv_tpu``.
+host threads.  ``transcode`` converts files between the two profiles on
+the card, byte-identical to the JAX package's transcoder; the tools run
+as ``python -m fpv_tpu_torch.cli.<encode|decode|inspect|benchmark|
+transcode>``, and ``fpv_tpu_torch.batch`` holds the columnar and Arrow
+frontends.  It imports neither JAX nor ``fpv_tpu``.
 
     import fpv_tpu_torch
     data = fpv_tpu_torch.encode_file_fpvt(frames, shift=4, device="cuda")
@@ -17,6 +21,7 @@ host threads.  It imports neither JAX nor ``fpv_tpu``.
     frame = fpv_tpu_torch.FpvtReader(data, device="cuda").decode_frame(5)
     fpv1 = fpv_tpu_torch.encode_file(frames, shift=4, device="cuda")
     back = fpv_tpu_torch.decode_file(fpv1, num_threads=8, device="cuda")
+    fpvt = fpv_tpu_torch.transcode(fpv1, "fpvt", shift=4, device="cuda")
 """
 
 from fpv_tpu_torch.api.fpvt_codec import (
@@ -35,6 +40,12 @@ from fpv_tpu_torch.api.decoder import (
 from fpv_tpu_torch.api.encoder import Encoder, encode_file
 from fpv_tpu_torch.api.frame import ChunkFlags, FrameFlags, FramePlanes
 from fpv_tpu_torch.api.multistream import MultiStreamDecoder, MultiStreamEncoder
+from fpv_tpu_torch.api.transcode import (
+    sniff_profile,
+    transcode,
+    transcode_to_fpv1,
+    transcode_to_fpvt,
+)
 
 __all__ = [
     "ChunkFlags",
@@ -52,5 +63,9 @@ __all__ = [
     "decode_file_fpvt",
     "encode_file",
     "encode_file_fpvt",
+    "sniff_profile",
+    "transcode",
+    "transcode_to_fpv1",
+    "transcode_to_fpvt",
     "warmup_stream",
 ]

@@ -213,8 +213,9 @@ class RandomAccessDecoder:
         return memoryview(self._data)[
             chunk.main_start : chunk.main_start + chunk.main_size]
 
-    def _decode_frames(self, indices, pool=None) -> np.ndarray:
-        """Frames ``indices`` as one device batch -> uint16 [k, H, W];
+    def _decode_frames_device(self, indices, pool=None) -> torch.Tensor:
+        """Frames ``indices`` as one device batch -> int32 [k, H, W] u16
+        samples on the decoder's device (one K4 launch for the CG frames);
         ``pool`` (an executor) runs their brotli streams."""
         mains = [self._main(i) for i in indices]
         imgs, err = container.decompress_images(
@@ -222,11 +223,31 @@ class RandomAccessDecoder:
             pool=pool)
         if err is not None:
             raise err
-        return _to_host_u16(imgs)
+        return imgs
+
+    def _decode_frames(self, indices, pool=None) -> np.ndarray:
+        """Frames ``indices`` as one device batch -> uint16 [k, H, W]."""
+        return _to_host_u16(self._decode_frames_device(indices, pool))
 
     def decode_frame(self, index: int) -> np.ndarray:
         """Decode frame ``index`` -> uint16 [H, W]."""
         return self._decode_frames([index])[0]
+
+    def _decode_previews(self, indices, pool=None) -> np.ndarray:
+        """Previews of frames ``indices`` as one device batch -> uint8
+        [k, H//4, W//4] (one K4 launch for the CG previews)."""
+        pdatas = []
+        for i in indices:
+            chunk = container.parse_frame_chunk(self._data,
+                                                self._frame_offsets[i])
+            pdatas.append(memoryview(self._data)[
+                chunk.preview_start : chunk.preview_start + chunk.preview_size])
+        imgs, err = container.decompress_images(
+            pdatas, self.preview_xsize, self.preview_ysize, self._device,
+            grown_size=(self._xsize * self._ysize) // 16, pool=pool)
+        if err is not None:
+            raise err
+        return (_to_host_u16(imgs) >> 8).astype(np.uint8)
 
     def decode_preview(self, index: int) -> np.ndarray:
         """Decode the preview of frame ``index`` -> uint8 [H//4, W//4]
@@ -234,14 +255,7 @@ class RandomAccessDecoder:
         a (xsize/4, ysize/4) image, its high bytes.  The reference's grown
         CG previews at dimensions that are not multiples of 4 decode too
         (:func:`container.parse_image`)."""
-        chunk = container.parse_frame_chunk(self._data,
-                                            self._frame_offsets[index])
-        pdata = memoryview(self._data)[
-            chunk.preview_start : chunk.preview_start + chunk.preview_size]
-        img = container.decompress_image(
-            pdata, self.preview_xsize, self.preview_ysize, self._device,
-            grown_size=(self._xsize * self._ysize) // 16)
-        return (_to_host_u16(img) >> 8).astype(np.uint8)
+        return self._decode_previews([index])[0]
 
 
 def decode_file(data: bytes, num_threads: int = 0, dtype=np.uint16,

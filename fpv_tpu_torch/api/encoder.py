@@ -192,10 +192,13 @@ class Encoder:
             raise RuntimeError("init() must be called first")
         self._compress_batch(np.asarray(img)[None], [(callback, payload)])
 
-    def _compress_batch(self, imgs: np.ndarray, callbacks) -> None:
-        """[B, H, W] frames through one device step, queued in order."""
-        imgs = self._upload(
-            np.asarray(imgs).reshape(-1, self._ysize, self._xsize))
+    def _compress_batch(self, imgs, callbacks) -> None:
+        """[B, H, W] frames through one device step, queued in order:
+        host frames, or int32 u16 samples already on the encoder's
+        device (the transcoder's decoded batches)."""
+        if not isinstance(imgs, torch.Tensor):
+            imgs = self._upload(
+                np.asarray(imgs).reshape(-1, self._ysize, self._xsize))
         self._queue(
             frame_ops.split_planes(imgs, self._shift, self._big_endian),
             callbacks)

@@ -11,9 +11,12 @@ frames compress and decompress in parallel on a thread pool.
 Decompression mirrors ``BrotliDecompress`` (fusion_power_video.cc:186-214):
 it decodes ONE brotli stream out of a buffer that may hold two
 concatenated streams and reports where that stream ended.  Every stream is
-decoded straight into a caller's buffer of the size the caller expects,
-and one that would grow past it raises ``ValueError`` (a brotli bomb
-cannot allocate beyond the plane it claims to be).
+decoded straight into a caller's buffer of the size the caller expects
+(``decompress_into``) or, where the size is unknown, into one that grows
+up to a cap (``decompress_stream``), and one that would grow past it
+raises ``ValueError`` (a brotli bomb cannot allocate beyond the plane it
+claims to be).  ``compress_into`` writes a stream straight into a
+caller's buffer (the Arrow columns).
 """
 
 from __future__ import annotations
@@ -27,6 +30,9 @@ import numpy as np
 QUALITY = 1  # FPV_BROTLI_QUALITY (fusion_power_video.cc:169)
 DEFAULT_WINDOW = 22  # BROTLI_DEFAULT_WINDOW
 MODE_GENERIC = 0  # BROTLI_DEFAULT_MODE
+# default cap of decompress_stream: the format's image-size guard
+# (fusion_power_video.cc:164)
+MAX_STREAM_SIZE = 1_000_000_000
 
 # BrotliDecoderResult values (the public C API)
 _RESULT_SUCCESS = 1
@@ -96,22 +102,48 @@ def available() -> bool:
     return True
 
 
-def compress(data, quality: int = QUALITY) -> bytes:
-    """Brotli-compress ``data`` (any buffer) exactly as the reference does:
-    one ``BrotliEncoderCompress`` call, window 22, generic mode."""
-    lib = _lib()
-    src = np.frombuffer(data, np.uint8)
+def max_compressed_size(n: int) -> int:
+    """``BrotliEncoderMaxCompressedSize`` (fusion_power_video.cc:355-361):
+    the largest stream :func:`compress` can make of ``n`` bytes (0 when
+    ``n`` is too large to bound)."""
+    return int(_lib().max_size(int(n)))
+
+
+def _compress_to(src: np.ndarray, out: np.ndarray, quality: int) -> int:
+    """One ``BrotliEncoderCompress`` call of the uint8 array ``src`` into
+    the writable uint8 array ``out`` -> the stream's length.  With ``out``
+    at least :func:`max_compressed_size` long the bytes do not depend on
+    its length."""
     n = src.size
     if not n:
         src = np.zeros(1, np.uint8)  # a valid pointer for the empty input
-    cap = int(lib.max_size(n)) or 64
-    out = np.empty(cap, np.uint8)
-    size = _SZ(cap)
-    ok = lib.compress(quality, DEFAULT_WINDOW, MODE_GENERIC, n,
-                      src.ctypes.data, ctypes.byref(size), out.ctypes.data)
+    size = _SZ(out.size)
+    ok = _lib().compress(quality, DEFAULT_WINDOW, MODE_GENERIC, n,
+                         src.ctypes.data, ctypes.byref(size), out.ctypes.data)
     if not ok:
+        if out.size < max_compressed_size(n):
+            raise ValueError("destination smaller than the compressed stream")
         raise RuntimeError("brotli compression failed")
-    return out[: size.value].tobytes()
+    return size.value
+
+
+def compress(data, quality: int = QUALITY) -> bytes:
+    """Brotli-compress ``data`` (any buffer) exactly as the reference does:
+    one ``BrotliEncoderCompress`` call, window 22, generic mode."""
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty(max_compressed_size(src.size) or 64, np.uint8)
+    return out[: _compress_to(src, out, quality)].tobytes()
+
+
+def compress_into(data, dest, quality: int = QUALITY) -> int:
+    """Compress ``data`` (any buffer) straight into the writable buffer
+    ``dest`` -> the stream's length; the bytes equal :func:`compress`'s.
+    ``dest`` should hold :func:`max_compressed_size` bytes: a shorter one
+    that the stream does not fit raises ``ValueError``."""
+    out = np.frombuffer(dest, np.uint8)
+    if not out.flags.writeable:
+        raise ValueError("dest must be a writable buffer")
+    return _compress_to(np.frombuffer(data, np.uint8), out, quality)
 
 
 def decompress_into(data, pos: int, dest: np.ndarray) -> tuple[int, int]:
@@ -151,5 +183,48 @@ def decompress_into(data, pos: int, dest: np.ndarray) -> tuple[int, int]:
         if result != _RESULT_SUCCESS:
             raise ValueError("brotli decompression failed")
         return written, src.size - avail_in.value
+    finally:
+        lib.destroy(state)
+
+
+def decompress_stream(data, pos: int = 0,
+                      max_size: int = MAX_STREAM_SIZE) -> tuple[bytes, int]:
+    """Decode the one brotli stream of ``data`` (any buffer) that starts at
+    ``pos`` -> (decoded bytes, end position of the stream), for callers
+    that do not know its decoded size.  The output grows as the stream
+    needs, up to ``max_size`` bytes: a stream that decodes to more raises
+    ``ValueError``, as a corrupt or truncated one does."""
+    lib = _lib()
+    src = np.frombuffer(data, np.uint8)
+    if pos > src.size:
+        raise ValueError("out of bounds")
+    state = lib.create(None, None, None)
+    if not state:
+        raise RuntimeError("couldn't init brotli decoder")
+    try:
+        avail_in = _SZ(src.size - pos)
+        next_in = _P(src.ctypes.data + pos)
+        # one byte past the cap, so a stream longer than it shows itself
+        limit = max_size + 1
+        out = np.empty(min(limit, max(1 << 16, 4 * (src.size - pos))),
+                       np.uint8)
+        written = 0
+        while True:
+            avail_out = _SZ(out.size - written)
+            next_out = _P(out.ctypes.data + written)
+            result = lib.stream(state, ctypes.byref(avail_in),
+                                ctypes.byref(next_in), ctypes.byref(avail_out),
+                                ctypes.byref(next_out), None)
+            written = out.size - avail_out.value
+            if written > max_size:
+                raise ValueError("decompressed stream larger than expected")
+            if result != _RESULT_NEEDS_MORE_OUTPUT:
+                break
+            grown = np.empty(min(limit, 2 * out.size), np.uint8)
+            grown[:written] = out[:written]
+            out = grown
+        if result != _RESULT_SUCCESS:
+            raise ValueError("brotli decompression failed")
+        return out[:written].tobytes(), src.size - avail_in.value
     finally:
         lib.destroy(state)

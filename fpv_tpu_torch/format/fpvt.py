@@ -207,6 +207,28 @@ def serialize_plane_stream(ps: PlaneStream) -> bytes:
     return struct.pack("<I", size + pad) + body + b"\0" * pad
 
 
+def plane_stream_accounting(ps: PlaneStream) -> dict:
+    """Byte accounting of one plane stream as serialized (v4 layout)."""
+    hdr = 4 + 20
+    if ps.coding == CODING_CONST:
+        return dict(total=hdr, tables=0, states=0, counts=0, payload=0,
+                    stream_headers=hdr, coding=ps.coding, lanes=0)
+    if ps.coding == CODING_RAW:
+        n = ps.nframes * ps.plane_size
+        size = hdr + n
+        return dict(total=size + _pad8(size), tables=0, states=0, counts=0,
+                    payload=n, stream_headers=hdr + _pad8(size),
+                    coding=ps.coding, lanes=0)
+    states = 4 * ps.num_chunks
+    counts = 4 * ps.num_blocks * num_segments(ps.chunk_len)
+    payload = 2 * ps.payload.size
+    size = hdr + 512 + states + counts + payload
+    return dict(total=size + _pad8(size), tables=512, states=states,
+                counts=counts, payload=payload,
+                stream_headers=hdr + _pad8(size), coding=ps.coding,
+                lanes=ps.lanes)
+
+
 def parse_plane_stream(
     data: bytes, pos: int, nframes: int, expect_size: int | None = None
 ) -> tuple[PlaneStream, int]:

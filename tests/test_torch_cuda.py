@@ -578,3 +578,142 @@ def test_fpv1_round_trip_on_card(cuda, shift, bits, big_endian):
         np.testing.assert_array_equal(ra.decode_preview(i),
                                       rc.decode_preview(i))
     assert kernels.LAUNCHES["cg_flat_decode"] > 0
+
+
+def _fpv1_cg(data: bytes) -> tuple[bool, list[bool]]:
+    """An FPV1 file's CG flags: (delta frame, [each frame])."""
+    from fpv_tpu_torch.format import container
+
+    cg = fpv_tpu_torch.FrameFlags.USE_CG
+    return bool(data[13] & cg), [
+        bool(data[container.parse_frame_chunk(data, off).main_start] & cg)
+        for off in container.parse_footer(data)]
+
+
+@pytest.mark.cuda
+def test_transcode_round_trip_on_card(cuda):
+    """FPV1 -> FPVT -> FPV1 on the card returns the input; both directions
+    write the CPU's bytes (held to the JAX package's by
+    test_torch_transcode.py); one K4 launch per FPVT batch (frame 0 decodes
+    with the first) plus the delta frame's, one K2 per batch plus the
+    delta section's."""
+    from fpv_tpu_torch.utils import kernels
+
+    frames = testdata.plasma_frames(9, 64, 128, bits=12, seed=4)
+    fpv1 = fpv_tpu_torch.encode_file(frames, shift=4, device="cpu")
+    kw = dict(shift=4, frames_per_batch=3)
+    kernels.reset_launches()
+    fpvt = fpv_tpu_torch.transcode_to_fpvt(fpv1, device=cuda, **kw)
+    torch.cuda.synchronize()
+    k4 = kernels.LAUNCHES["cg_flat_decode"]
+    assert fpvt == fpv_tpu_torch.transcode_to_fpvt(fpv1, device="cpu", **kw)
+    delta_cg, cg = _fpv1_cg(fpv1)
+    batches = [cg[0:4], cg[4:7], cg[7:9]]  # frame 0 rides with batch 0
+    assert k4 == delta_cg + sum(any(b) for b in batches) and k4 > 1
+    np.testing.assert_array_equal(
+        fpv_tpu_torch.decode_file_fpvt(fpvt, device=cuda), frames << 4)
+    kernels.reset_launches()
+    back = fpv_tpu_torch.transcode_to_fpv1(fpvt, device=cuda)
+    torch.cuda.synchronize()
+    assert back == fpv1
+    from fpv_tpu_torch.format import fpvt as tfpvt
+
+    _f, dh, dl = tfpvt.parse_delta_section(fpvt, tfpvt.HEADER_SIZE)
+    sections = [(dh, dl)] + [
+        (pb.high, pb.low) for pb in (tfpvt.parse_batch_section(fpvt, off)
+                                     for off, _n in tfpvt.parse_footer(fpvt))]
+    assert kernels.LAUNCHES["rans_decode"] == sum(
+        any(st is not None and st.coding in (0, 1) for st in sec)
+        for sec in sections)
+
+
+@pytest.mark.cuda
+def test_columnar_decode_on_card_one_k4_per_batch(cuda):
+    """Columnar on the card: the batches equal the CPU encoder's, each
+    ImageType decodes to the CPU's images with one K4 launch per batch
+    holding a CG frame (or CG preview)."""
+    from fpv_tpu_torch.batch import columnar as tcol
+    from fpv_tpu_torch.utils import kernels
+
+    frames = testdata.plasma_frames(12, 64, 96, bits=12, seed=3)
+
+    def encode(dev):
+        out = []
+        enc = tcol.ColumnarBatchEncoder(96, 64, 4, False,
+                                        lambda b: out.append(b) if b else None,
+                                        frames_per_batch=5, device=dev)
+        for i in range(len(frames)):
+            enc.push_frame(i, frames[i]).result(timeout=60)
+        enc.join()
+        return out
+
+    card, cpu = encode(cuda), encode("cpu")
+    for a, b in zip(card, cpu):
+        assert a.length == b.length
+        np.testing.assert_array_equal(a._buffer, b._buffer)
+    for type in tcol.ImageType:
+        kernels.reset_launches()
+        got = [img for b in card for img in b.extract_images(type, cuda)]
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["cg_flat_decode"] == sum(
+            any(f & fpv_tpu_torch.FrameFlags.USE_CG
+                for f in b._flags[: b.length]) for b in card)
+        want = [img for b in cpu for img in b.extract_images(type, "cpu")]
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.data, w.data)
+    full = [img for b in card for img in b.extract_images(tcol.ImageType.FULL)]
+    for img, f in zip(full, frames):
+        np.testing.assert_array_equal(img.data16().reshape(64, 96), f << 4)
+
+
+@pytest.mark.cuda
+def test_arrow_round_trip_on_card(cuda):
+    pytest.importorskip("pyarrow")
+    from fpv_tpu_torch.batch import arrow as tarrow
+
+    frames = testdata.plasma_frames(5, 48, 64, bits=12, seed=6)
+    out = {}
+    for dev in (cuda, "cpu"):
+        rbs = []
+        enc = tarrow.ArrowEncoder(64, 48, 4, False,
+                                  lambda rb: rbs.append(rb) if rb else None,
+                                  frames_per_batch=3, device=dev)
+        for i in range(len(frames)):
+            enc.push_frame(i, frames[i]).result(timeout=60)
+        enc.join()
+        out[str(dev)] = rbs
+    for a, b in zip(out[str(cuda)], out["cpu"]):
+        assert a.equals(b) and a.schema.equals(b.schema, check_metadata=True)
+    got = [f for rb in out[str(cuda)]
+           for f in tarrow.decode_record_batch(rb, device=cuda)]
+    np.testing.assert_array_equal(np.stack(got), frames << 4)
+
+
+@pytest.mark.cuda
+def test_cli_on_card_writes_the_cpu_bytes(cuda, tmp_path):
+    """``python -m fpv_tpu_torch.cli.encode`` with ``--device cuda`` writes
+    the bytes ``--device cpu`` writes, in both profiles; decode and
+    ``inspect --check`` run on the card."""
+    import pathlib
+    import subprocess
+    import sys
+
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    raw = testdata.to_raw_bytes(
+        testdata.plasma_frames(5, 64, 128, bits=12, seed=5), shift=4)
+
+    def run(tool, args, stdin, device):
+        return subprocess.run(
+            [sys.executable, "-m", f"fpv_tpu_torch.cli.{tool}", *args,
+             "--device", device], input=stdin, capture_output=True,
+            check=True, cwd=repo).stdout
+
+    for profile in ("fpv1", "fpvt"):
+        args = ["128", "64", "0", "4", "2", "--profile", profile]
+        data = run("encode", args, raw, "cuda")
+        assert data == run("encode", args, raw, "cpu")
+        assert run("decode", ["128", "64", "0", "4"], data, "cuda") == raw
+        path = tmp_path / profile
+        path.write_bytes(data)
+        assert run("inspect", ["--check", str(path)], b"", "cuda").endswith(
+            b"check: ok (all batches decode)\n")

@@ -177,6 +177,13 @@ def test_import_leaves_out_jax_and_fpv_tpu():
         "import fpv_tpu_torch.format.bits, fpv_tpu_torch.entropy.brotli\n"
         "import fpv_tpu_torch.models.heuristics\n"
         "import fpv_tpu_torch.models.predictors\n"
+        "import fpv_tpu_torch.api.transcode, fpv_tpu_torch.utils.platform\n"
+        "import fpv_tpu_torch.cli.encode, fpv_tpu_torch.cli.decode\n"
+        "import fpv_tpu_torch.cli.inspect, fpv_tpu_torch.cli.benchmark\n"
+        "import fpv_tpu_torch.cli.transcode, fpv_tpu_torch.batch.columnar\n"
+        "import importlib.util\n"
+        "if importlib.util.find_spec('pyarrow'):\n"
+        "    import fpv_tpu_torch.batch.arrow\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'fpv_tpu', 'fpv_native'))\n"
