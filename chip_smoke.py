@@ -45,7 +45,22 @@
 9. Malformed input on the card: mutations and truncations of a small
    1024-lane file that reach K2 and K3 decode or raise ValueError, then a
    clean decode of the corpus file's batch 1 equals the full decode.
-10. The FPV1 compatibility profile (``encode_file``/``decode_file``,
+10. The multi-device layer (``parallel/mesh.py``, ``parallel/distributed.py``)
+   on the corpus file: ``sharded_encode_file`` over ``make_mesh()`` (D = 1,
+   the card) equals ``encode_file_fpvt``'s bytes and ``sharded_decode_file``
+   its frames and the reader's previews, with the single-device file's
+   launches (K1a/K1b 6/6, K2 5, K3 1); over two logical shards of the card
+   (frames_per_batch 16) the same against ``encode_file_fpvt`` at 16; wall
+   seconds of each beside the single-device calls (a warm-up and three
+   runs); ``sharded_codec_roundtrip`` on 2 shards of 16 1024^2 frames at
+   chunk 4096 (ok, exact, one K1a/K1b/K2 per shard); ``multichip_dryrun(2)``;
+   ``warmup_stream(mesh=)``; two gloo ranks on the card as subprocesses
+   (``--rank-worker``; 81 frames, the single-process file's SHA-256 on
+   both, exact decodes); a fresh process's cold start to one
+   ``warmup_stream`` with the library built (no nvcc); one
+   ``profiling.trace`` of a D = 1 encode + decode (busy share, the three
+   longest kernels, the ``mesh.*`` spans).  One ``mesh`` JSON line.
+11. The FPV1 compatibility profile (``encode_file``/``decode_file``,
    ``Encoder``, the decoders): the device filter chain on the card
    against the CPU's on 8 corpus crops; K4 (flat CG inverse) against its
    plain version on the residuals the main path gives it (the delta
@@ -59,7 +74,7 @@
    streaming decoder (1 MiB pieces); the time split (brotli threads, the
    device step, K4).  One ``fpv1`` JSON line.  Without the system
    libbrotli the phase checks the filter chain and K4 only and says so.
-11. Transcoding and the tools, on the FPV1 phase's 64-frame file:
+12. Transcoding and the tools, on the FPV1 phase's 64-frame file:
    ``transcode_to_fpvt`` (shift 4) and ``transcode_to_fpv1`` of its
    output, a warm-up and three timed calls each, counted (K4 once per
    FPVT batch plus the delta frame's, K1a/K1b per batch and coded delta
@@ -75,10 +90,10 @@
    PREVIEW exact, one K4 launch per batch, card arrays equal CPU arrays
    on a crop); the Arrow round trip when pyarrow is installed (which
    happened is printed).  One ``transcode`` JSON line.
-12. Prints a JSON line of the kernels, then the result line
+13. Prints a JSON line of the kernels, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
-Each path (4-11) is driven with the launch counts set to 0 just
+Each path (4-12) is driven with the launch counts set to 0 just
 before it and read just after; a kernel the path needs that it did not
 launch fails the run.  Any failure raises (non-zero exit) and prints no
 result line.
@@ -93,6 +108,7 @@ import pathlib
 import statistics
 import struct
 import importlib.util
+import socket
 import subprocess
 import sys
 import tempfile
@@ -120,6 +136,7 @@ from fpv_tpu_torch.api.fpvt_codec import (
     encode_file_fpvt,
     encode_model_step,
     pv_chunk_len,
+    warmup_stream,
 )
 from fpv_tpu_torch.api.multistream import MultiStreamDecoder, MultiStreamEncoder
 from fpv_tpu_torch.api.transcode import transcode_to_fpv1, transcode_to_fpvt
@@ -160,7 +177,20 @@ from fpv_tpu_torch.ops.rans_layout import (
     CODING_RAW,
     CTX_PROB_BITS,
 )
-from fpv_tpu_torch.utils import kernels, testdata
+from fpv_tpu_torch.parallel.distributed import (
+    distributed_decode_file,
+    distributed_encode_file,
+    global_data_mesh,
+    initialize,
+)
+from fpv_tpu_torch.parallel.mesh import (
+    make_mesh,
+    multichip_dryrun,
+    sharded_codec_roundtrip,
+    sharded_decode_file,
+    sharded_encode_file,
+)
+from fpv_tpu_torch.utils import kernels, profiling, testdata
 
 N_FRAMES, H, W, BITS, SHIFT, FPB, CHUNK_LOG2 = 128, 1024, 1024, 12, 4, 32, 12
 TALL = (1, 65536, 64)  # the format's tallest frame, one CTA's wavefront
@@ -851,6 +881,260 @@ def check_fuzz(data: bytes, out: np.ndarray, dev) -> dict:
         raise AssertionError("batch 1 after the fuzz != full decode")
     return dict(mutants=len(mutants), **outcome, launches=launches,
                 clean_decode_after="equal")
+
+
+MESH_FPB = 16  # frames per batch of the logical-shard and two-rank runs
+RANKS = 2
+RANK_FRAMES = 1 + RANKS * 2 * MESH_FPB + MESH_FPB  # 2 groups + a tail
+ROUNDTRIP_FRAMES = 32
+WORKER_TIMEOUT = 300
+
+
+def launches_of(want: dict, encode: bool) -> dict:
+    """:func:`expected_launches`' counts as :func:`check_launches` takes
+    them, for an encode or a whole-file decode."""
+    if encode:
+        return {"rans_encode_chain": want["k1"],
+                "rans_encode_place": want["k1"]}
+    return {"rans_decode": want["k2"], "cg2d_decode": want["k3"]}
+
+
+def reader_previews(data: bytes, dev) -> np.ndarray:
+    """Every frame's preview as the reader gives it (frame 0's from the
+    delta frame)."""
+    r = FpvtReader(data, device=dev)
+    return np.concatenate(
+        [r.preview_frame(0)[None]]
+        + [r.decode_batch_with_previews(i)[1] for i in range(r.num_batches)])
+
+
+def rank_worker(rank: int, port: int, path: str) -> None:
+    """One rank of the two-rank run: join the gloo group, encode the frames
+    at ``path`` over the mesh of both ranks' cards (both cuda:0 here) and
+    decode the file round-robin; print one ``RANK`` JSON line."""
+    frames = np.load(path)
+    initialize(f"127.0.0.1:{port}", RANKS, rank)
+    mesh = global_data_mesh()
+    kernels.reset_launches()
+    data, enc_ms = timed_once(lambda: distributed_encode_file(
+        frames, mesh=mesh, shift=SHIFT, frames_per_batch=MESH_FPB,
+        chunk_log2=CHUNK_LOG2))
+    enc = dict(kernels.LAUNCHES)
+    out, dec_ms = timed_once(lambda: distributed_decode_file(data,
+                                                             device="cuda"))
+    if not np.array_equal(out, frames << SHIFT):
+        raise AssertionError(f"rank {rank}: the decode is not pixel-exact")
+    dec = {k: v - enc[k] for k, v in kernels.LAUNCHES.items()}
+    torch.distributed.destroy_process_group()
+    print("RANK " + json.dumps(dict(
+        rank=rank, sha256=hashlib.sha256(data).hexdigest(),
+        encode_s=enc_ms / 1e3, decode_s=dec_ms / 1e3, encode_launches=enc,
+        decode_launches=dec)), flush=True)
+
+
+def check_ranks(frames: np.ndarray, dev) -> dict:
+    """Two ranks on the one card, each a subprocess with a timeout: the
+    distributed encode equals the single-process file, and the decode is
+    pixel-exact on both."""
+    sub = np.ascontiguousarray(frames[:RANK_FRAMES])
+    want = hashlib.sha256(encode_file_fpvt(
+        sub, shift=SHIFT, frames_per_batch=MESH_FPB, chunk_log2=CHUNK_LOG2,
+        device=dev)).hexdigest()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "frames.npy")
+        np.save(path, sub)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--rank-worker",
+             str(r), str(port), path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=REPO) for r in range(RANKS)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=WORKER_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        wall = time.perf_counter() - t0
+    rows = []
+    for p, out in zip(procs, outs):
+        if p.returncode:
+            raise AssertionError(f"rank worker exit {p.returncode}:\n"
+                                 f"{out[-3000:]}")
+        rows += [json.loads(line[5:]) for line in out.splitlines()
+                 if line.startswith("RANK ")]
+    if [r["sha256"] for r in rows] != [want] * RANKS:
+        raise AssertionError(f"rank files differ from the single-process "
+                             f"file {want}: {rows}")
+    return dict(frames=list(sub.shape), ranks=rows, wall_s=wall,
+                sha256_equal=True, pixels="exact")
+
+
+def check_coldstart() -> dict:
+    """A fresh process (the kernels' library already built) from start to
+    the end of one ``warmup_stream(1024, 1024, shift=4,
+    frames_per_batch=16)``: no nvcc may run (the library's mtime stays)."""
+    lib = kernels.library_path()
+    before = lib.stat().st_mtime_ns
+    code = ("import time; t0 = time.perf_counter()\n"
+            "import torch, fpv_tpu_torch\n"
+            "t1 = time.perf_counter()\n"
+            f"fpv_tpu_torch.warmup_stream({W}, {H}, shift={SHIFT}, "
+            f"frames_per_batch={MESH_FPB})\n"
+            "torch.cuda.synchronize()\n"
+            "print(t1 - t0, time.perf_counter() - t1)\n")
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=REPO, timeout=WORKER_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if p.returncode:
+        raise AssertionError(f"cold start failed: {p.stderr[-3000:]}")
+    if lib.stat().st_mtime_ns != before:
+        raise AssertionError("the cold start rebuilt the kernels")
+    import_s, warm_s = (float(v) for v in p.stdout.split())
+    return dict(process_s=wall, import_s=import_s, warmup_s=warm_s,
+                library=lib.name, rebuilt=False)
+
+
+def check_trace(frames: np.ndarray, data: bytes, mesh, kw: dict) -> dict:
+    """One D = 1 sharded encode + decode under ``profiling.trace``: the
+    device busy share and the three longest kernels (the ``mesh.*``
+    ranges carry device time too and are left out of both).  A first,
+    empty trace starts the profiler's CUDA tracing outside the window."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").sum().item()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profiling.trace(tmp) as prof:
+            sharded_encode_file(frames, mesh, **kw)
+            sharded_decode_file(data, mesh)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        traced = len(os.listdir(tmp))
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", 0)
+
+    rows = [e for e in prof.key_averages() if dev_us(e) > 0
+            and not e.key.startswith(("aten::", "mesh."))]
+    kern = [e for e in rows if not e.key.startswith(("Memcpy", "Memset"))]
+    busy = sum(dev_us(e) for e in rows) / 1e6
+    spans = {e.key: e.count for e in prof.key_averages()
+             if e.key.startswith("mesh.")}
+    return dict(wall_s=wall, device_busy_s=busy, busy_share=busy / wall,
+                longest_kernels_ms_launches=[
+                    (e.key[:60], dev_us(e) / 1e3, e.count)
+                    for e in sorted(kern, key=lambda e: -dev_us(e))[:3]],
+                spans=spans, trace_files=traced)
+
+
+def check_mesh(frames: np.ndarray, data: bytes, out: np.ndarray, dev,
+               card: str) -> dict:
+    """The multi-device layer on the card (parallel/mesh.py,
+    parallel/distributed.py): D = 1 over the card, D = 2 logical shards on
+    it, the sharded codec round trip, the dry run, warmup_stream(mesh=),
+    two gloo ranks, a cold start and a trace; each path counted."""
+    t_phase = time.perf_counter()
+    kw = dict(shift=SHIFT, frames_per_batch=FPB, chunk_log2=CHUNK_LOG2)
+    row = dict(card=card, frames=list(frames.shape))
+    k1 = ("rans_encode_chain", "rans_encode_place")
+    want = expected_launches(data)
+    mesh1 = make_mesh()
+
+    got, l_enc = counted("mesh D=1 encode", k1,
+                         lambda: sharded_encode_file(frames, mesh1, **kw))
+    if got != data:
+        raise AssertionError("D = 1 sharded file != encode_file_fpvt's")
+    check_launches("mesh D=1 encode", l_enc, launches_of(want, True))
+    dec, l_dec = counted("mesh D=1 decode", ("rans_decode",),
+                         lambda: sharded_decode_file(data, mesh1))
+    if not np.array_equal(dec, out):
+        raise AssertionError("D = 1 sharded decode is not pixel-exact")
+    check_launches("mesh D=1 decode", l_dec, launches_of(want, False))
+    (dec, pv), l_pv = counted(
+        "mesh D=1 previews", ("rans_decode",),
+        lambda: sharded_decode_file(data, mesh1, want_previews=True))
+    if not (np.array_equal(dec, out)
+            and np.array_equal(pv, reader_previews(data, dev))):
+        raise AssertionError("D = 1 sharded previews != the reader's")
+    check_launches("mesh D=1 previews", l_pv,
+                   launches_of(expected_launches(data, previews=True), False))
+    row["d1"] = dict(encode_launches=l_enc, decode_launches=l_dec,
+                     previews_launches=l_pv, bytes_equal=True,
+                     pixels="exact", previews="equal the reader's")
+    for name, fn in (
+            ("sharded_encode", lambda: sharded_encode_file(frames, mesh1,
+                                                           **kw)),
+            ("encode_file_fpvt", lambda: encode_file_fpvt(frames, device=dev,
+                                                          **kw)),
+            ("sharded_decode", lambda: sharded_decode_file(data, mesh1)),
+            ("decode_file_fpvt", lambda: decode_file_fpvt(data, device=dev))):
+        row["d1"][f"{name}_s"] = runs3(fn)[1]
+
+    mesh2 = make_mesh(devices=[dev, dev])
+    kw16 = dict(kw, frames_per_batch=MESH_FPB)
+    data16 = encode_file_fpvt(frames, device=dev, **kw16)
+    want16 = expected_launches(data16)
+    got, l_enc = counted("mesh D=2 encode", k1,
+                         lambda: sharded_encode_file(frames, mesh2, **kw16))
+    if got != data16:
+        raise AssertionError("D = 2 sharded file != encode_file_fpvt's")
+    check_launches("mesh D=2 encode", l_enc, launches_of(want16, True))
+    dec, l_dec = counted("mesh D=2 decode", ("rans_decode",),
+                         lambda: sharded_decode_file(data16, mesh2))
+    if not np.array_equal(dec, out):
+        raise AssertionError("D = 2 sharded decode is not pixel-exact")
+    check_launches("mesh D=2 decode", l_dec, launches_of(want16, False))
+    row["d2_logical"] = dict(frames_per_batch=MESH_FPB, bytes=len(data16),
+                             encode_launches=l_enc, decode_launches=l_dec,
+                             bytes_equal=True, pixels="exact")
+    for name, fn in (
+            ("sharded_encode", lambda: sharded_encode_file(frames, mesh2,
+                                                           **kw16)),
+            ("encode_file_fpvt", lambda: encode_file_fpvt(frames, device=dev,
+                                                          **kw16)),
+            ("sharded_decode", lambda: sharded_decode_file(data16, mesh2)),
+            ("decode_file_fpvt", lambda: decode_file_fpvt(data16,
+                                                          device=dev))):
+        row["d2_logical"][f"{name}_s"] = runs3(fn)[1]
+    del data16
+
+    body = frames[1 : 1 + ROUNDTRIP_FRAMES]
+    left = frames[0].astype(np.uint32) << SHIFT
+    step = sharded_codec_roundtrip(mesh2, chunk_len=1 << CHUNK_LOG2,
+                                   shift=SHIFT)
+    (rec, ok), l_rt = counted("mesh roundtrip", (*k1, "rans_decode"),
+                              lambda: step(body, (left >> 8) & 0xFF,
+                                           left & 0xFF))
+    if not ok or not np.array_equal(rec, body << SHIFT):
+        raise AssertionError("sharded codec round trip failed")
+    if [l_rt[k] for k in (*k1, "rans_decode")] != [2, 2, 2]:
+        raise AssertionError(f"round trip launches {l_rt}: one grouped K1a, "
+                             "K1b and K2 per shard expected")
+    _none, rt_s = runs3(lambda: step(body, (left >> 8) & 0xFF, left & 0xFF))
+    row["roundtrip"] = dict(frames=list(body.shape), shards=2,
+                            chunk_len=1 << CHUNK_LOG2, ok=True,
+                            launches=l_rt, wall_s=rt_s)
+    del rec
+
+    _none, dry_ms = timed_once(lambda: multichip_dryrun(2, mesh=mesh2))
+    _none, warm_ms = timed_once(lambda: warmup_stream(
+        W, H, shift=SHIFT, frames_per_batch=MESH_FPB, mesh=mesh2))
+    row.update(dryrun_s=dry_ms / 1e3, warmup_mesh_s=warm_ms / 1e3)
+    row["ranks"] = check_ranks(frames, dev)
+    row["coldstart"] = check_coldstart()
+    row["trace"] = check_trace(frames, data, mesh1, kw)
+    row["phase_s"] = time.perf_counter() - t_phase
+    print("mesh", json.dumps(row), flush=True)
+    return row
 
 
 FPVT_KERNELS = ("rans_encode_chain", "rans_encode_place", "rans_decode",
@@ -1581,6 +1865,7 @@ def main() -> None:
     hubs.update(check_replay(data, out, dev))
     print("hubs", json.dumps(hubs), flush=True)
     print("card fuzz", json.dumps(check_fuzz(data, out, dev)), flush=True)
+    check_mesh(frames, data, out, dev, card)
     del out, data
     torch.cuda.empty_cache()
 
@@ -1647,4 +1932,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank-worker"]:
+        rank_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

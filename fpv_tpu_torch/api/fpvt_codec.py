@@ -170,12 +170,23 @@ def _support_mask(plane: torch.Tensor) -> torch.Tensor:
     255 form one run)."""
     if plane.numel() == 0:
         return torch.ones(256, dtype=torch.int32, device=plane.device)
+    return _mask_of_ranges(_value_ranges(plane))
+
+
+def _value_ranges(plane: torch.Tensor) -> torch.Tensor:
+    """[4] int32 (min, max, recentered min, recentered max) of a non-empty
+    u8 plane batch: what :func:`_support_mask` depends on."""
     v = plane.reshape(-1).to(torch.int32)
-    sym = torch.arange(256, dtype=torch.int32, device=plane.device)
-    m_plain = (sym >= v.min()) & (sym <= v.max())
     r = (v + 128) & 255
+    return torch.stack([v.min(), v.max(), r.min(), r.max()])
+
+
+def _mask_of_ranges(ranges: torch.Tensor) -> torch.Tensor:
+    """:func:`_support_mask` from :func:`_value_ranges`."""
+    sym = torch.arange(256, dtype=torch.int32, device=ranges.device)
+    m_plain = (sym >= ranges[0]) & (sym <= ranges[1])
     rsym = (sym + 128) & 255
-    m_rec = (rsym >= r.min()) & (rsym <= r.max())
+    m_rec = (rsym >= ranges[2]) & (rsym <= ranges[3])
     return (m_plain & m_rec).to(torch.int32)
 
 
@@ -403,6 +414,16 @@ def fused_encode_batch(
                             streams["preview"])
 
 
+def put_frames(frames: np.ndarray, device) -> torch.Tensor:
+    """u16 (or u8) frames -> int32 tensor of u16 samples on ``device``
+    (uploaded as 16- or 8-bit words, widened there)."""
+    arr = np.ascontiguousarray(frames)
+    if arr.dtype == np.uint8:
+        return torch.from_numpy(arr).to(device).to(torch.int32)
+    arr = arr.astype(np.uint16, copy=False).view(np.int16)
+    return torch.from_numpy(arr).to(device).to(torch.int32) & 0xFFFF
+
+
 class FpvtWriter:
     """Streaming FPVT file writer: init -> encode_batch* -> finish."""
 
@@ -457,13 +478,8 @@ class FpvtWriter:
         self._total_frames = 0
 
     def _put(self, frames: np.ndarray) -> torch.Tensor:
-        """u16 (or u8) frames -> int32 tensor of u16 samples on the
-        writer's device (uploaded as 16- or 8-bit words, widened there)."""
-        arr = np.ascontiguousarray(frames)
-        if arr.dtype == np.uint8:
-            return torch.from_numpy(arr).to(self._device).to(torch.int32)
-        arr = arr.astype(np.uint16, copy=False).view(np.int16)
-        return torch.from_numpy(arr).to(self._device).to(torch.int32) & 0xFFFF
+        """:func:`put_frames` onto the writer's device."""
+        return put_frames(frames, self._device)
 
     def _put_planes(self, high: np.ndarray, low: np.ndarray | None):
         """[..., H, W] u8 byte planes -> int32 left-aligned samples
@@ -607,6 +623,30 @@ class FpvtWriter:
         split_big_endian: bool,
         timestamps: np.ndarray | None,
     ) -> bytes:
+        flags, streams = self._encode_batch_streams(imgs, split_shift,
+                                                    split_big_endian)
+        return self._serialize(flags, streams, timestamps)
+
+    @staticmethod
+    def _serialize(flags: np.ndarray, streams, timestamps) -> bytes:
+        """A batch section of :meth:`_encode_batch_streams`'s output."""
+        if timestamps is None:
+            timestamps = np.full(len(flags), -1, dtype=np.int64)
+        return fpvt.serialize_batch_section(flags, timestamps, *streams)
+
+    def _encode_batch_streams(
+        self,
+        imgs: torch.Tensor,
+        split_shift: int,
+        split_big_endian: bool,
+        delta: tuple[torch.Tensor, torch.Tensor] | None = None,
+    ):
+        """The device work and host packaging of one batch, short of its
+        serialization -> (frame flags, (high, low, preview) streams).
+        ``delta``: the delta planes on ``imgs``'s device (default: the
+        writer's own, on its device)."""
+        dh, dl = delta if delta is not None else (self._delta_high,
+                                                  self._delta_low)
         b = imgs.shape[0]
         h, w = self.header.ysize, self.header.xsize
         n_main = b * h * w
@@ -617,15 +657,13 @@ class FpvtWriter:
             )
         if not self._narrow or n_main > plane_codec.NARROW_MAX_SYMS:
             flags, (hs, ls, pvs) = fused_encode_batch(
-                imgs, self._delta_high, self._delta_low, split_shift,
-                split_big_endian, self._chunk_len,
+                imgs, dh, dl, split_shift, split_big_endian, self._chunk_len,
                 low_coding=self._low_coding, allow_prev=self._allow_prev,
             )
         else:
             m = encode_model_step(
-                imgs, self._delta_high, self._delta_low, split_shift,
-                split_big_endian, True, self._low_coding == CODING_CTX16,
-                self._allow_prev,
+                imgs, dh, dl, split_shift, split_big_endian, True,
+                self._low_coding == CODING_CTX16, self._allow_prev,
             )
 
             def code(name: str, chunk_len: int, coding: int = CODING_ORDER0):
@@ -644,9 +682,7 @@ class FpvtWriter:
                    if m["preview"].numel() else None)
             ls = code("low", self._chunk_len, self._low_coding)
             flags = _pack_flags(m)
-        if timestamps is None:
-            timestamps = np.full(b, -1, dtype=np.int64)
-        return fpvt.serialize_batch_section(flags, timestamps, hs, ls, pvs)
+        return flags, (hs, ls, pvs)
 
     def add_batch(self, section: bytes, nframes: int) -> bytes:
         """Record a section from :meth:`encode_batch_bytes` as the next
@@ -868,6 +904,27 @@ class FpvtReader:
         """Context queuing this reader's device work on its issue stream
         (no-op on the CPU)."""
         return torch.cuda.stream(self._stream)
+
+    def _replica(self, device) -> FpvtReader:
+        """A reader of the same file on ``device`` with issue and copy
+        streams of its own, sharing this reader's parsed index and upload
+        cache; its delta planes are copies of this reader's (no kernel
+        runs).  One reader per mesh shard lets shards on one card decode
+        side by side."""
+        dev = resolve_device(device)
+        r = FpvtReader.__new__(FpvtReader)
+        r.__dict__.update(self.__dict__)
+        cuda = dev.type == "cuda"
+        r._device = dev
+        r._stream = torch.cuda.Stream(dev) if cuda else None
+        r._copy_stream = torch.cuda.Stream(dev) if cuda else None
+        r._cache = r._chain_cache = None
+        if self._stream is not None:
+            self._stream.synchronize()  # the delta planes are decoded
+        with r._on_stream():
+            r._delta_high = self._delta_high.to(dev)
+            r._delta_low = self._delta_low.to(dev)
+        return r
 
     def _parse_batch(self, off: int) -> fpvt.ParsedBatch:
         """parse_batch_section with this file's frame geometry enforced
@@ -1430,12 +1487,17 @@ def warmup_stream(
     when ``previews``).  Synthetic drifting-noise frames
     (:func:`_warmup_frames`) make every kernel run.
 
-    ``mesh`` (the JAX package's sharded whole-file programs) has no
-    counterpart yet: passing one raises ValueError."""
+    ``mesh`` (a :class:`fpv_tpu_torch.parallel.mesh.Mesh`): also run one
+    mesh group of such frames (a batch per data shard) through
+    ``sharded_encode_file`` and, with ``decode``, ``sharded_decode_file``
+    (with previews when ``previews``), which warms every shard's device;
+    anything but a ``Mesh`` raises ValueError."""
     if mesh is not None:
-        raise ValueError(
-            "warmup_stream(mesh=...) needs the sharded multi-GPU path "
-            "(parallel/, ROADMAP queue 1 item 6), which is not ported yet")
+        from fpv_tpu_torch.parallel import mesh as pmesh
+
+        if not isinstance(mesh, pmesh.Mesh):
+            raise ValueError("mesh= takes a Mesh of fpv_tpu_torch/parallel/"
+                             "mesh.py (make_mesh)")
     dev = resolve_device(device)
     if dev.type == "cuda":
         kernels.library()
@@ -1447,10 +1509,18 @@ def warmup_stream(
     )
     data = b"".join([wri.init(frames[0]), wri.encode_batch(frames[1:]),
                      wri.finish()])
-    if not decode:
-        return
-    rdr = FpvtReader(data, device=dev)
-    if previews:
-        rdr.decode_batch_with_previews(0)
-    else:
-        rdr.decode_batch(0)
+    if decode:
+        rdr = FpvtReader(data, device=dev)
+        if previews:
+            rdr.decode_batch_with_previews(0)
+        else:
+            rdr.decode_batch(0)
+    if mesh is not None:
+        n = mesh.shape["data"] * frames_per_batch
+        mframes = _warmup_frames(rng, n + 1, ysize, xsize, shift)
+        mdata = pmesh.sharded_encode_file(
+            mframes, mesh, shift=shift, big_endian=big_endian,
+            frames_per_batch=frames_per_batch, chunk_log2=chunk_log2,
+        )
+        if decode:
+            pmesh.sharded_decode_file(mdata, mesh, want_previews=previews)

@@ -247,9 +247,12 @@ def rans_encode_chain_ref(
     fmask = (1 << prob_bits) - 1
     lens64 = lens.to(torch.int64)
     x = torch.full((nb, lanes), RANS_L, dtype=torch.int64, device=dev)
-    words = torch.zeros((nb, k, lanes), dtype=torch.int64, device=dev)
+    # steps past every lane's length leave x at RANS_L and emit nothing
+    jmax = min(k, int(lens64.max())) if lens64.numel() else 0
+    words = torch.full((nb, k, lanes), RANS_L & 0xFFFF, dtype=torch.int64,
+                       device=dev)
     emits = torch.zeros((nb, k, lanes), dtype=torch.bool, device=dev)
-    for j in range(k - 1, -1, -1):
+    for j in range(jmax - 1, -1, -1):
         idx = syms[:, j].to(torch.int64)
         if ctx_mode and j:
             idx = _ctx_of(syms[:, j - 1].to(torch.int64)) * CTX_ALPHA + idx
@@ -452,7 +455,12 @@ def rans_decode_ref(
     prev = torch.zeros((nb, lanes), dtype=torch.int64, device=dev)
     seg_ok = torch.ones(nb, dtype=torch.bool, device=dev)
     ptr = base = None
+    # past every lane's length a step changes nothing: only the segment
+    # boundaries' checks remain
+    jmax = int(lens64.max()) if lens64.numel() else 0
     for j in range(k):
+        if j >= jmax and j % kseg:
+            continue
         if j % kseg == 0:
             if j:
                 seg_ok &= ptr == 0

@@ -8,6 +8,12 @@ so an edited source rebuilds and an unchanged one loads the existing
 build.  Nothing is built or loaded when a module is imported: the CPU
 paths never touch this module's loader.
 
+This library is the port's cold-start cache, the counterpart of the JAX
+package's serialized executables (``fpv_tpu/utils/aotcache.py``): a
+process whose sources are already built loads the library (no nvcc) and
+pays only the CUDA context and the first launches, which
+``fpvt_codec.warmup_stream`` takes ahead of traffic.
+
 ``LAUNCHES`` counts kernel launches per wrapper name; each wrapper adds
 one where it launches its kernel and nowhere else.  The build and the
 counts are safe to reach from several threads at once (the serving hubs'

@@ -717,3 +717,68 @@ def test_cli_on_card_writes_the_cpu_bytes(cuda, tmp_path):
         path.write_bytes(data)
         assert run("inspect", ["--check", str(path)], b"", "cuda").endswith(
             b"check: ok (all batches decode)\n")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 2], ids=["d1", "d2-logical"])
+def test_sharded_file_round_trip_on_card(cuda, monkeypatch, shards):
+    """``sharded_encode_file`` / ``sharded_decode_file`` over D shards of
+    the one card (D = 2: two logical shards, each on its own stream): the
+    file equals ``encode_file_fpvt``'s on the card, the decode is
+    pixel-exact, and both launch what the single-device calls launch."""
+    from fpv_tpu_torch.entropy import plane_codec
+    from fpv_tpu_torch.parallel import mesh as tmesh
+    from fpv_tpu_torch.utils import kernels
+
+    monkeypatch.setattr(plane_codec, "NARROW_MAX_SYMS", 0)
+    frames = testdata.plasma_frames(1 + 2 * 2 * 4 + 3, 64, 128, bits=12,
+                                    seed=6)
+    kw = dict(shift=4, frames_per_batch=4, chunk_log2=8)
+    mesh = tmesh.make_mesh(devices=[cuda] * shards)
+
+    def counted(fn):
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(kernels.LAUNCHES)
+
+    want, l_want = counted(lambda: fpv_tpu_torch.encode_file_fpvt(
+        frames, device=cuda, **kw))
+    got, l_got = counted(lambda: tmesh.sharded_encode_file(frames, mesh,
+                                                           **kw))
+    assert got == want and l_got == l_want
+    assert l_got["rans_encode_chain"] == 5 + 2  # 5 batches + 2 delta planes
+    back, l_dec = counted(lambda: fpv_tpu_torch.decode_file_fpvt(
+        want, device=cuda))
+    out, l_out = counted(lambda: tmesh.sharded_decode_file(want, mesh))
+    np.testing.assert_array_equal(out, frames << 4)
+    np.testing.assert_array_equal(out, back)
+    assert l_out == l_dec and l_out["rans_decode"] == 5 + 1
+    out, pv = tmesh.sharded_decode_file(want, mesh, want_previews=True)
+    np.testing.assert_array_equal(out, frames << 4)
+    r = fpv_tpu_torch.FpvtReader(want, device=cuda)
+    np.testing.assert_array_equal(pv, np.concatenate(
+        [r.preview_frame(0)[None]]
+        + [r.decode_batch_with_previews(i)[1]
+           for i in range(r.num_batches)]))
+
+
+@pytest.mark.cuda
+def test_sharded_codec_roundtrip_on_card(cuda):
+    """The full codec over two logical shards of the card: one grouped K1a,
+    K1b and K2 launch per shard, ok, pixel-exact (left-aligned)."""
+    from fpv_tpu_torch.parallel import mesh as tmesh
+    from fpv_tpu_torch.utils import kernels
+
+    frames = testdata.plasma_frames(9, 128, 160, bits=12, seed=7)
+    left = frames[0].astype(np.uint32) << 4
+    step = tmesh.sharded_codec_roundtrip(
+        tmesh.make_mesh(devices=[cuda, cuda]), chunk_len=256, shift=4)
+    kernels.reset_launches()
+    out, ok = step(frames[1:], (left >> 8) & 0xFF, left & 0xFF)
+    assert ok
+    np.testing.assert_array_equal(out, frames[1:] << 4)
+    assert [kernels.LAUNCHES[k] for k in ("rans_encode_chain",
+                                          "rans_encode_place",
+                                          "rans_decode")] == [2, 2, 2]
+    tmesh.multichip_dryrun(2, mesh=tmesh.make_mesh(devices=[cuda, cuda]))

@@ -181,6 +181,9 @@ def test_import_leaves_out_jax_and_fpv_tpu():
         "import fpv_tpu_torch.cli.encode, fpv_tpu_torch.cli.decode\n"
         "import fpv_tpu_torch.cli.inspect, fpv_tpu_torch.cli.benchmark\n"
         "import fpv_tpu_torch.cli.transcode, fpv_tpu_torch.batch.columnar\n"
+        "import fpv_tpu_torch.parallel.mesh\n"
+        "import fpv_tpu_torch.parallel.distributed\n"
+        "import fpv_tpu_torch.utils.profiling\n"
         "import importlib.util\n"
         "if importlib.util.find_spec('pyarrow'):\n"
         "    import fpv_tpu_torch.batch.arrow\n"

@@ -260,6 +260,8 @@ def test_warmup_stream_runs_for_geometry(previews, monkeypatch):
 
 
 def test_warmup_stream_rejects_mesh():
+    """``mesh=`` takes a parallel.mesh.Mesh (test_torch_parallel.py runs
+    one); anything else is rejected."""
     with pytest.raises(ValueError, match="parallel/"):
         fpv_tpu_torch.warmup_stream(32, 32, device="cpu", mesh=object())
 
