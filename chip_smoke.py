@@ -90,10 +90,21 @@
    PREVIEW exact, one K4 launch per batch, card arrays equal CPU arrays
    on a crop); the Arrow round trip when pyarrow is installed (which
    happened is printed).  One ``transcode`` JSON line.
-13. Prints a JSON line of the kernels, then the result line
+13. The measurement tools (``ops/rans_bound.py``, ``studies/``): every
+   K2 variant (``csrc/rans_decode_variants.cu``: the stub_tables and
+   stub_window latency replicas, per-class tables, precisions 11 and 10,
+   two-table lookups, nsub 2/4/8 blocks per CTA) against its plain
+   version bit for bit, on 3 blocks and at the reports' shape (64 blocks
+   of 512 steps), the decoding variants also against the stream; K1a's
+   nsub variant against K1a and its plain version; then, counted, the
+   five reports at the JAX module's defaults and ``large_frame_study`` at
+   full size (4 frames of 4096^2, chunk_log2 11-13); the three entropy
+   studies at ``--fast`` on the card, equal to the CPU's numbers; the
+   ptxas registers and spills of every kernel.  One ``bound`` JSON line.
+14. Prints a JSON line of the kernels, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
-Each path (4-12) is driven with the launch counts set to 0 just
+Each path (4-13) is driven with the launch counts set to 0 just
 before it and read just after; a kernel the path needs that it did not
 launch fails the run.  Any failure raises (non-zero exit) and prints no
 result line.
@@ -105,6 +116,7 @@ import hashlib
 import json
 import os
 import pathlib
+import re
 import statistics
 import struct
 import importlib.util
@@ -168,7 +180,7 @@ from fpv_tpu_torch.format.fpvt import (
     F_SPATIAL_SHIFT,
     SPATIAL_CG2D,
 )
-from fpv_tpu_torch.ops import predict, rans_cuda
+from fpv_tpu_torch.ops import predict, rans_bound, rans_cuda
 from fpv_tpu_torch.ops.planes import split_planes
 from fpv_tpu_torch.ops.preview import generate_preview
 from fpv_tpu_torch.ops.rans_layout import (
@@ -189,6 +201,12 @@ from fpv_tpu_torch.parallel.mesh import (
     sharded_codec_roundtrip,
     sharded_decode_file,
     sharded_encode_file,
+)
+from fpv_tpu_torch.studies import (
+    class_tables_study,
+    ctx_study,
+    large_frame_study,
+    temporal_study,
 )
 from fpv_tpu_torch.utils import kernels, profiling, testdata
 
@@ -1755,6 +1773,193 @@ def check_transcode(data: bytes, frames: np.ndarray, dev, card: str) -> dict:
     return row
 
 
+BOUND_SMALL = dict(nblocks=3, chunk_len=64)  # nsub 2, 4, 8 do not divide 3
+BOUND_REPORT = dict(nblocks=64, chunk_len=rans_bound.CHUNK_LEN)
+LARGE = dict(size=4096, frames=4, chunks=[11, 12, 13], reps=3)
+
+
+def kernel_label(mangled: str) -> str:
+    """A kernel's readable name from its mangled one: the variants by
+    ``rans_bound.variant_label``, K1a's nsub by its chain count."""
+    m = re.search(r"rans_decode_variant_kernelILb(\d)ENS_7VariantILb(\d)ELb"
+                  r"(\d)ELi(\d+)ELi(\d+)ELb(\d)ELi(\d+)E", mangled)
+    if m:
+        ctx, st, sw, cls, pb, two, nsub = (int(g) for g in m.groups())
+        return "rans_decode_variant " + rans_bound.variant_label(
+            (bool(ctx), bool(st), bool(sw), cls, 7 if ctx else pb,
+             not two, nsub))
+    m = re.search(r"rans_encode_chain_nsub_kernelILi(\d+)E", mangled)
+    if m:
+        return f"rans_encode_chain nsub{m.group(1)}"
+    for kern in ("rans_encode_chain_kernel", "rans_encode_place_kernel",
+                 "rans_decode_kernel", "cg2d_decode_kernel",
+                 "cg_flat_decode_kernel"):
+        if kern in mangled:
+            return kern
+    return mangled
+
+
+def ptxas_report() -> dict:
+    """Registers and spill bytes of every kernel in the library, from the
+    ptxas report kept beside it: {kernel: [registers, spill stores, spill
+    loads]}."""
+    log = kernels.library_path().with_suffix(".log").read_text()
+    out, name, spills = {}, None, [0, 0]
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            spills = [int(w) for w in line.split() if w.isdigit()][1:3]
+        elif "Used" in line and "registers" in line and name:
+            regs = int(line.split("Used")[1].split()[0])
+            out[kernel_label(name)] = [regs, *spills]
+            name = None
+    return out
+
+
+def busy_ms(fn) -> float:
+    """``fn``'s time on the card in ms as the reports take it
+    (``rans_bound._time_interleaved``: calls queued back to back behind
+    an untimed one, best of 5), so that wrappers' host work is not
+    timed."""
+    return rans_bound._time_interleaved([fn], reps=5)[0] * 1e3
+
+
+def check_variants(dev) -> list[dict]:
+    """Every K2 variant on the card against its plain version (on the same
+    card tensors), bit for bit, at BOUND_SMALL and at the reports' shape;
+    the decoding ones also against the stream's symbols.  Times the
+    kernel (:func:`busy_ms`), K2 on the same planes where it reads them
+    (``k2_ms``), and the plain version (one run) at the reports' shape;
+    the bound is K2's bytes there."""
+    rows = []
+    for key in sorted(rans_cuda.VARIANTS):
+        row = dict(case=rans_bound.variant_label(key))
+        for where, shape in (("small", BOUND_SMALL), ("report",
+                                                      BOUND_REPORT)):
+            planes, flags, want = rans_bound.variant_case(key, device=dev,
+                                                          **shape)
+            got = rans_cuda.rans_decode_variant(planes, **flags)
+            ref, plain_ms = timed_once(lambda: [
+                rans_cuda.rans_decode_variant_ref(*p, **flags)
+                for p in planes])
+            err = max(max_err(g, r) for g, r in zip(got, ref))
+            if want is not None:
+                err = max(err, max_err((got[0][0],), (want,)))
+                if not bool((got[0][1] == 1).all()):
+                    raise AssertionError(f"{row['case']}: ok flags not set")
+            if err:
+                raise AssertionError(f"{row['case']} {where}: kernel != "
+                                     f"plain ({err})")
+            row[f"{where}_blocks"] = int(planes[0].states.shape[0])
+            row["max_abs_err"] = err
+        p = planes[0]
+        row.update(
+            chunk_len=p.chunk_len,
+            ms=busy_ms(lambda: rans_cuda.rans_decode_variant(planes,
+                                                             **flags)),
+            # K2 itself, where the planes carry its table
+            k2_ms=busy_ms(lambda: rans_cuda.rans_decode_grouped(planes))
+            if p.table.numel() == 4096 and p.prob_bits in (7, 12) else None,
+            plain_ms=plain_ms, plain_timing="one run",
+            bound_bytes=nbytes(p.counts, p.starts, p.states, p.lens,
+                               p.table, p.payload, *got[0]),
+            decodes_the_stream=want is not None)
+        row["bound_ms"] = row["bound_bytes"] / HBM_BYTES_PER_MS
+        print("variant", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def check_encode_nsub(dev) -> list[dict]:
+    """K1a with nsub 2, 4, 8 chains per thread against K1a and its plain
+    version (on the same card tensors) at BOUND_SMALL and at the reports'
+    shape, bit for bit; times at the reports' shape (K1a's bound there:
+    its inputs, states and counts)."""
+    rows = []
+    for nsub in (2, 4, 8):
+        row = dict(case=f"order0 nsub{nsub}", lanes=1024)
+        for where, nb in (("small", BOUND_SMALL["nblocks"]),
+                          ("report", BOUND_REPORT["nblocks"])):
+            plane, _n = rans_bound._build_encode_args(nb, device=dev)
+            got = rans_cuda.rans_encode_chain([plane], nsub=nsub)[0]
+            ref = rans_cuda.rans_encode_chain([plane])[0]
+            plain, plain_ms = timed_once(
+                lambda: rans_cuda.rans_encode_chain_ref(*plane))
+            err = max(max_err(got, ref), max_err(got, plain))
+            if err:
+                raise AssertionError(f"K1a nsub {nsub} {where}: {err}")
+            row[f"{where}_blocks"] = nb
+        row.update(
+            chunk_len=rans_bound.CHUNK_LEN, max_abs_err=0,
+            chain_ms=busy_ms(
+                lambda: rans_cuda.rans_encode_chain([plane], nsub=nsub)),
+            chain_k1a_ms=busy_ms(
+                lambda: rans_cuda.rans_encode_chain([plane])),
+            chain_plain_ms=plain_ms, plain_timing="one run",
+            bound_bytes=nbytes(plane.syms, plane.lens, plane.fc, got[0],
+                               got[3]))
+        row["bound_ms"] = row["bound_bytes"] / HBM_BYTES_PER_MS
+        print("k1a nsub", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def check_studies(dev) -> dict:
+    """The entropy studies at ``--fast`` on the card: every corpus's
+    numbers equal the CPU's (the same integer residuals, the same
+    entropies)."""
+    out = {}
+    for mod in (temporal_study, class_tables_study, ctx_study):
+        name = mod.__name__.rsplit(".", 1)[1]
+        rows = []
+        for corpus, frames, shift in temporal_study.corpora(4, 128,
+                                                           mod.CORPORA):
+            card = mod.study(corpus, frames, shift, device=dev)
+            if card != mod.study(corpus, frames, shift, device="cpu"):
+                raise AssertionError(f"{name} {corpus}: card != CPU")
+            rows.append(card)
+        out[name] = rows
+    return out
+
+
+def check_bound(dev, card: str) -> tuple[dict, list, list]:
+    """The measurement phase (docstring item 13) -> (the ``bound`` line,
+    the variant rows, the K1a nsub rows)."""
+    t_phase = time.perf_counter()
+    variants = check_variants(dev)
+    enc_nsub = check_encode_nsub(dev)
+
+    def reports():
+        rep = dict(
+            bound=rans_bound.bound_report(device=dev),
+            nsub_order0=rans_bound.nsub_report(device=dev),
+            nsub_ctx=rans_bound.nsub_report(ctx=True, device=dev),
+            nsub_encode=rans_bound.nsub_encode_report(device=dev),
+            fused_rows=rans_bound.fused_rows_report(device=dev),
+            class_tables=rans_bound.class_tables_report(device=dev))
+        t0 = time.perf_counter()
+        rep["large_frame"] = large_frame_study.run(device=dev, **LARGE)
+        rep["large_frame"]["wall_s"] = time.perf_counter() - t0
+        return rep
+
+    rep, launches = counted(
+        "bound", ("rans_decode_variant", "rans_decode", "rans_encode_chain",
+                  "rans_encode_place"), reports)
+    b = rep["bound"]
+    row = dict(
+        card=card,
+        decode_bound_fraction=b["decode_bound_fraction"],
+        core_fraction=b["core_fraction"],
+        step_full_ns=b["step_full_ns"], step_chain_ns=b["step_chain_ns"],
+        step_core_ns=b["step_core_ns"], **rep,
+        studies_fast=check_studies(dev),
+        launches=launches, ptxas=ptxas_report())
+    row["phase_s"] = time.perf_counter() - t_phase
+    print("bound", json.dumps(row), flush=True)
+    return row, variants, enc_nsub
+
+
 def main() -> None:
     # The run uses one card: only the first visible one is made visible,
     # before CUDA starts, so the device count reported is the card used.
@@ -1875,6 +2080,9 @@ def main() -> None:
               flush=True)
     else:
         check_transcode(fpv1_data, frames, dev, card)
+    del frames
+    torch.cuda.empty_cache()
+    bound, variants, enc_nsub = check_bound(dev, card)
 
     err = max(r["max_abs_err"] for r in rans_rows + [grouped])
 
@@ -1904,9 +2112,22 @@ def main() -> None:
         return row
 
     enc_src = ("rans_encode.cu", "fpv_tpu/ops/rans_pallas.py:880")
+    headline = next(r for r in variants if r["case"] == "order0-nsub2")
+    variant_kernel = dict(
+        name="rans_decode_variant", route="cuda",
+        source="fpv_tpu_torch/csrc/rans_decode_variants.cu",
+        replaces="fpv_tpu/ops/rans_pallas.py:999",
+        launches=bound["launches"]["rans_decode_variant"],
+        max_abs_err=max(r["max_abs_err"] for r in variants),
+        ms=headline["ms"], plain_ms=headline["plain_ms"],
+        bound_ms=headline["bound_ms"], bound_by="bytes", library_ms=None,
+        shape=f"order0-nsub2, {headline['report_blocks']} blocks x "
+        f"{headline['chunk_len']} steps x 1024 lanes (the reports' shape)",
+        bound_bytes=headline["bound_bytes"], cases=variants)
     kernels_line = {"kernels": [
         rans_kernel("rans_encode_chain", *enc_src, "chain",
-                    cases_line("chain_ms", "chain_plain_ms", "enc_ms")),
+                    cases_line("chain_ms", "chain_plain_ms", "enc_ms")
+                    + enc_nsub),
         rans_kernel("rans_encode_place", *enc_src, "place",
                     cases_line("place_ms", "place_plain_ms")),
         rans_kernel("rans_decode", "rans_decode.cu",
@@ -1922,6 +2143,7 @@ def main() -> None:
              bound_ms=cg_rows[0]["bound_ms"], bound_by="bytes",
              bound_share=cg_rows[0]["bound_share"],
              library_ms=None, shape=cg_rows[0]["case"], cases=cg_rows),
+        variant_kernel,
     ] + ([k4_row] if k4_row else [])}
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -239,6 +239,161 @@ __global__ void __launch_bounds__(kChainThreads) rans_encode_chain_kernel(
   if (valid) ((uint32_t*)d.states)[g] = x;
 }
 
+// K1a's nsub variant (ops/rans_bound.py's nsub_encode_report; JAX
+// encode_pallas's nsub, rans_pallas.py:299-450): K1a's loop above with a
+// thread running lane `lane` of the kNsub blocks cell * kNsub + u, their
+// chains interleaved step by step (K1a itself stays as written, so its
+// machine code does not move).  The block count is a multiple of kNsub (the
+// host pads with blocks of length 0).  Each chain keeps kAhead / kNsub
+// symbol rows in flight, so a thread holds kAhead rows whatever kNsub is:
+// with kNsub chains a step takes about kNsub times as long, and the rows
+// still land before their use.
+template <int kNsub>
+__device__ __forceinline__ void encode_chains(const EncDescs& descs,
+                                              int ndesc) {
+  constexpr int kAheadN = kAhead / kNsub;  // divides kseg >= 16
+  __shared__ Coder tab[512];
+  const EncDesc& d = find_desc<&EncDesc::cta0>(descs.d, ndesc, blockIdx.x);
+  const int nidx = (int)d.nidx;
+  const int prob_bits = (int)d.prob_bits;
+  const uint32_t* fc = (const uint32_t*)d.fc;
+  for (int i = threadIdx.x; i < nidx; i += kChainThreads) {
+    tab[i] = make_coder(fc[i], prob_bits);
+  }
+  __syncthreads();
+
+  const int lanes = (int)d.lanes;
+  const int64_t total = d.nblocks / kNsub * lanes;
+  const int wl = threadIdx.x & 31;
+  const int64_t g = (blockIdx.x - d.cta0) * kChainThreads + threadIdx.x;
+  if (g - wl >= total) return;  // a warp past the plane's lanes
+  // The rest of a plane's last warp (a plane of fewer than 32 lanes) runs
+  // along as lanes of length 0 that store nothing, so every ballot is over
+  // the full warp.
+  const bool valid = g < total;
+  const int64_t gv = valid ? g : total - 1;
+  const int64_t cell = gv / lanes;
+  const int lane = (int)(gv % lanes);
+  // ballot word of this lane's block, its bits within the warp, its writer
+  const int nwb = (lanes + 31) >> 5;
+  const int wshift = lanes >= 32 ? 0 : wl - lane;
+  const unsigned wmask = lanes >= 32 ? kFull : (1u << lanes) - 1u;
+  const bool writer = valid && (lanes >= 32 ? wl == 0 : lane == 0);
+
+  const int k = (int)d.chunk_len;
+  const int kseg = k < kSegLen ? k : kSegLen;
+  const int nseg = k / kseg;
+  // chain u's block is cell * kNsub + u; at[u] its lane's index
+  int64_t at[kNsub];
+  int len[kNsub];
+#pragma unroll
+  for (int u = 0; u < kNsub; ++u) {
+    at[u] = (cell * kNsub + u) * lanes + lane;
+    len[u] = valid ? ((const int32_t*)d.lens)[at[u]] : 0;
+  }
+  const uint32_t idx_max = (uint32_t)nidx - 1;
+  const bool ctx = d.ctx_mode != 0;
+  // per chain: its symbol block, running pointers at step k-1 (outputs)
+  // and k-1-kAheadN (symbol rows), counts
+  const uint8_t* blk[kNsub];
+  uint16_t* wp[kNsub];
+  uint32_t* bp[kNsub];
+  const uint8_t* rp[kNsub];
+  int32_t* cnt[kNsub];
+#pragma unroll
+  for (int u = 0; u < kNsub; ++u) {
+    const int64_t m = cell * kNsub + u;
+    blk[u] = (const uint8_t*)d.syms + m * (int64_t)k * lanes;
+    wp[u] = (uint16_t*)d.words + (m * k + k - 1) * (int64_t)lanes + lane;
+    bp[u] = (uint32_t*)d.ballots + (m * k + k - 1) * (int64_t)nwb +
+            (lane >> 5);
+    rp[u] = blk[u] + (int64_t)(k - 1 - kAheadN) * lanes;
+    cnt[u] = (int32_t*)d.counts + m * nseg;
+  }
+
+  uint32_t x[kNsub];
+#pragma unroll
+  for (int u = 0; u < kNsub; ++u) x[u] = kRansL;
+  // rows[u][j % kAheadN] holds chain u's step j symbols, loaded kAheadN
+  // steps before their first use: the loads' latency stays off the chain.
+  // Steps come in groups of kAheadN (kseg is a multiple), so every index
+  // is static.
+  Row rows[kNsub][kAheadN];
+  Row below_rows[kNsub];
+#pragma unroll
+  for (int u = 0; u < kNsub; ++u) {
+#pragma unroll
+    for (int i = 0; i < kAheadN; ++i) {
+      const int j = k - kAheadN + i;
+      rows[u][i] =
+          load_row(blk[u] + (int64_t)j * lanes, true, lane, lanes, ctx);
+    }
+    const int jb = k - kAheadN - 1;
+    below_rows[u] = load_row(jb >= 0 ? blk[u] + (int64_t)jb * lanes : blk[u],
+                             jb >= 0, lane, lanes, ctx);
+  }
+  for (int gs = nseg - 1; gs >= 0; --gs) {
+    int emitted[kNsub];
+#pragma unroll
+    for (int u = 0; u < kNsub; ++u) emitted[u] = 0;
+    const int jlo = gs * kseg;
+    for (int j0 = jlo + kseg - 1; j0 >= jlo; j0 -= kAheadN) {
+#pragma unroll
+      for (int i = kAheadN - 1; i >= 0; --i) {
+        // step j = j0 - (kAheadN - 1 - i), whose row is rows[u][i]; the
+        // previous step's row is rows[u][i - 1], or for i == 0 the row
+        // below the group
+        const int j = j0 - (kAheadN - 1 - i);
+#pragma unroll
+        for (int u = 0; u < kNsub; ++u) {
+          const Row prv = i ? rows[u][i - 1] : below_rows[u];
+          const Coder c = tab[table_index(rows[u][i], prv, ctx, idx_max)];
+          const bool active = j < len[u];
+          const bool emit = active && x[u] >= c.xmax;
+          if (valid) *wp[u] = (uint16_t)(x[u] & 0xFFFFu);
+          wp[u] -= lanes;
+          const unsigned bits =
+              (__ballot_sync(kFull, emit) >> wshift) & wmask;
+          if (writer) *bp[u] = bits;
+          bp[u] -= nwb;
+          emitted[u] += writer ? __popc(bits) : 0;
+          const uint32_t x2 = emit ? (x[u] >> 16) : x[u];
+          const uint32_t q = __umulhi(x2, c.rcp) >> (c.cmpl_shift >> 16);
+          const uint32_t xn = x2 + c.bias + q * (c.cmpl_shift & 0xFFFFu);
+          x[u] = active ? xn : x[u];
+          // step j's row is free: refill the slot with step j - kAheadN's
+          const bool in = j - kAheadN >= 0;
+          rows[u][i] = load_row(in ? rp[u] : blk[u], in, lane, lanes, ctx);
+          rp[u] -= lanes;
+        }
+      }
+      const int jn = j0 - 2 * kAheadN;
+#pragma unroll
+      for (int u = 0; u < kNsub; ++u) {
+        below_rows[u] =
+            load_row(jn >= 0 ? blk[u] + (int64_t)jn * lanes : blk[u],
+                     jn >= 0, lane, lanes, ctx);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kNsub; ++u) {
+      if (writer && emitted[u]) atomicAdd(cnt[u] + gs, emitted[u]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kNsub; ++u) {
+    if (valid) ((uint32_t*)d.states)[at[u]] = x[u];
+  }
+}
+
+// CTAs of kChainThreads threads over the plane's cells of kNsub blocks.
+template <int kNsub>
+__global__ void __launch_bounds__(kChainThreads)
+    rans_encode_chain_nsub_kernel(const __grid_constant__ EncDescs descs,
+                                  int ndesc) {
+  encode_chains<kNsub>(descs, ndesc);
+}
+
 __global__ void __launch_bounds__(kPlaceThreads) rans_encode_place_kernel(
     const __grid_constant__ EncDescs descs, int ndesc,
     uint16_t* __restrict__ payload) {
@@ -343,6 +498,31 @@ extern "C" int fpvt_rans_encode_chain(const void* descs, int ndesc,
   if (nctas > 0) {
     rans_encode_chain_kernel<<<nctas, kChainThreads, 0,
                                (cudaStream_t)stream>>>(p, ndesc);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K1a with nsub in {2, 4, 8} chains per thread; each plane's nblocks is a
+// multiple of nsub and its cta0 counts CTAs of cells.
+extern "C" int fpvt_rans_encode_chain_nsub(const void* descs, int ndesc,
+                                           int nctas, int nsub,
+                                           void* stream) {
+  EncDescs p;
+  if (!to_param(descs, ndesc, &p)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nctas > 0) {
+    if (nsub == 2) {
+      rans_encode_chain_nsub_kernel<2><<<nctas, kChainThreads, 0, s>>>(p,
+                                                                       ndesc);
+    } else if (nsub == 4) {
+      rans_encode_chain_nsub_kernel<4><<<nctas, kChainThreads, 0, s>>>(p,
+                                                                       ndesc);
+    } else if (nsub == 8) {
+      rans_encode_chain_nsub_kernel<8><<<nctas, kChainThreads, 0, s>>>(p,
+                                                                       ndesc);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
   }
   return (int)cudaGetLastError();
 }

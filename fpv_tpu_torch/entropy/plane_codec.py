@@ -369,6 +369,21 @@ def upload(a: np.ndarray, device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def decode_launch_args(stream: PlaneStream, device
+                       ) -> list[rans_cuda.DecodePlane]:
+    """The :class:`rans_cuda.DecodePlane` list that the production reader
+    would launch K2 on for a coded ``stream`` (all its blocks), built by
+    :func:`stage_blocks` itself: the counterpart of JAX's
+    ``pallas_decode_args``.  ``ops/rans_bound.py`` times K2's variants on
+    these, so the replicas share the production launch configuration by
+    construction."""
+    if stream.coding not in (CODING_ORDER0, CODING_CTX16):
+        raise ValueError("only a coded (order-0 or ctx16) stream has K2 "
+                         "launch arguments")
+    return stage_blocks([("", stream, 0, stream.num_blocks - 1)],
+                        device).planes
+
+
 class StagedBlocks(NamedTuple):
     """K2's inputs for several coded block ranges, on the device: one
     :class:`rans_cuda.DecodePlane` and one name per job."""

@@ -13,6 +13,12 @@ layout is ``rans_layout``'s, bit for bit.
 * :func:`rans_decode_grouped` launches K2 (``csrc/rans_decode.cu``,
   fused-table lookups only) once for a list of planes;
   :func:`rans_decode_ref` is its plain version.
+* :func:`rans_decode_variant` launches one of K2's measurement variants
+  (``csrc/rans_decode_variants.cu``: latency replicas, per-class tables,
+  other precisions, two-table lookups, several blocks per CTA) for
+  ``ops/rans_bound.py``; :func:`rans_decode_variant_ref` is the plain
+  version of them all, and of K2 with every flag off.  K1a takes ``nsub``
+  too (:func:`rans_encode_chain`).
 
 Each wrapper takes its plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises.  The planes of one call must
@@ -64,6 +70,22 @@ MAX_PLANES = 8  # planes per grouped launch (kMaxPlanes in both sources)
 # a multiple of PAYLOAD_PAD words past its start.
 PAYLOAD_ALIGN = 8
 PAYLOAD_PAD = 1024
+TWO_TABLE_SYM = 1024  # two-table layout: symbol words, then 256 fc words
+# K2's variants as csrc/rans_decode_variants.cu instantiates them (wide
+# blocks only): (ctx_mode, stub_tables, stub_window, stub_class,
+# prob_bits, fused_tab, nsub).  Every flag off ("base") is K2's step in
+# the variants' kernel, the control the others are timed against.
+VARIANTS = frozenset(
+    [(False, True, False, 0, 12, True, 1),
+     (False, True, True, 0, 12, True, 1)]
+    + [(False, False, False, c, 12, True, 1) for c in (2, 3)]
+    + [(False, False, False, 0, pb, True, 1) for pb in (11, 10)]
+    + [(False, False, False, 0, 12, False, 1)]
+    + [(True, False, False, c, CTX_PROB_BITS, True, 1) for c in (2, 3)]
+    + [(True, False, False, 0, CTX_PROB_BITS, False, 1)]
+    + [(ctx, False, False, 0, CTX_PROB_BITS if ctx else 12, True, n)
+       for ctx in (False, True) for n in (1, 2, 4, 8)])
+NSUB_ENCODE = (1, 2, 4, 8)  # K1a's chains per thread (rans_encode.cu)
 
 
 def u32_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -118,24 +140,66 @@ def table_arrays(freq: np.ndarray) -> np.ndarray:
     return ((np.maximum(freq, 1) - 1) & 0xFFF) | (cum << PROB_BITS)
 
 
-def fused_table_arrays(freq: np.ndarray) -> np.ndarray:
-    """Order-0 DECODE table, one u32 entry per slot: [4096].
+def fused_table_arrays(freq: np.ndarray,
+                       prob_bits: int = PROB_BITS) -> np.ndarray:
+    """Order-0 DECODE table, one u32 entry per slot: [2^prob_bits].
 
-    entry = off << 20 | (f-1) << 8 | sym, with off = slot - cum[sym]."""
+    entry = off << (8+prob_bits) | (f-1) << 8 | sym, with off = slot -
+    cum[sym].  The format fixes prob_bits at 12; 11 and 10 are for the
+    fused-rows sweep of ``ops/rans_bound.py``."""
     freq = np.asarray(freq, dtype=np.uint32)
-    if int(freq.sum()) != 1 << PROB_BITS:
-        raise ValueError("frequency table does not sum to 4096")
+    scale = 1 << prob_bits
+    if int(freq.sum()) != scale:
+        raise ValueError(f"frequency table does not sum to {scale}")
     cum = np.zeros(256, dtype=np.uint32)
     cum[1:] = np.cumsum(freq)[:-1]
     sym_of_slot = np.repeat(
         np.arange(256, dtype=np.uint32), freq.astype(np.int64)
     )
-    slots = np.arange(1 << PROB_BITS, dtype=np.uint32)
+    slots = np.arange(scale, dtype=np.uint32)
     off = slots - cum[sym_of_slot]
     f1 = freq[sym_of_slot] - 1
     return (
-        (off << np.uint32(8 + PROB_BITS)) | (f1 << np.uint32(8)) | sym_of_slot
+        (off << np.uint32(8 + prob_bits)) | (f1 << np.uint32(8)) | sym_of_slot
     )
+
+
+def two_table_arrays(freq: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Order-0 DECODE tables of the two-table lookup (JAX
+    ``rans_pallas.table_arrays``' fc and sym_packed, flat): (fc [256] u32
+    = (f-1) | cum << 12, sym [1024] u32 packing the symbol of slot 4i+b
+    in byte b of word i)."""
+    freq = np.asarray(freq, dtype=np.uint32)
+    sym_of_slot = np.repeat(np.arange(256, dtype=np.uint32),
+                            freq.astype(np.int64))
+    packed = np.zeros(len(sym_of_slot) // 4, dtype=np.uint32)
+    for b in range(4):
+        packed |= sym_of_slot[b::4] << np.uint32(8 * b)
+    return table_arrays(freq).astype(np.uint32), packed
+
+
+def ctx_decode_table_arrays(
+    freq_ctx: np.ndarray,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Ctx16 DECODE tables of the two-table lookup (JAX
+    ``rans_pallas.ctx_decode_table_arrays``, flat): (fc pairs [256] u32,
+    two 14-bit (f-1) | cum << 7 entries a word; sym [1024] u32, the
+    nibble symbol of index ctx*128 + slot at nibble idx % 8 of word
+    idx // 8, words 512-1023 zero)."""
+    fc = ctx_table_arrays(freq_ctx).astype(np.uint32)
+    pairs = fc[0::2] | (fc[1::2] << np.uint32(16))
+    sos = ctx_tables(freq_ctx)[2].astype(np.uint32)
+    nib = np.zeros(TWO_TABLE_SYM, dtype=np.uint32)
+    for b in range(8):
+        nib[: len(sos) // 8] |= sos[b::8] << np.uint32(4 * b)
+    return pairs, nib
+
+
+def two_table(fc: np.ndarray, sym: np.ndarray) -> np.ndarray:
+    """The two-table variant's table tensor layout: the 1024 symbol words,
+    then the 256 fc words (csrc/rans_decode_step.cuh kTwoTableSym)."""
+    return np.concatenate([np.asarray(sym, np.uint32),
+                           np.asarray(fc, np.uint32)])
 
 
 def ctx_table_arrays(freq_ctx: np.ndarray) -> np.ndarray:
@@ -313,38 +377,64 @@ def _check_encode_plane(p: EncodePlane) -> None:
         raise ValueError("encode table has the wrong size for the mode")
 
 
-def rans_encode_chain(planes: list[EncodePlane]) -> list[tuple]:
+def _pad_blocks(t: torch.Tensor, nb_pad: int, fill: int = 0) -> torch.Tensor:
+    """``t`` [nblocks, ...] with ``fill`` blocks appended up to nb_pad."""
+    nb = t.shape[0]
+    if nb == nb_pad:
+        return t
+    return torch.cat([t, t.new_full((nb_pad - nb, *t.shape[1:]), fill)])
+
+
+def rans_encode_chain(planes: list[EncodePlane], nsub: int = 1
+                      ) -> list[tuple]:
     """K1a on a list of planes, one launch -> per plane (states, words,
     ballots, counts) as :func:`rans_encode_chain_ref` returns them (on the
-    card, words of steps that emit nothing are written too)."""
+    card, words of steps that emit nothing are written too).
+
+    ``nsub`` (1, 2, 4, 8; JAX ``encode_pallas``'s nsub): each card thread
+    runs its lane of ``nsub`` blocks, the chains interleaved; the blocks
+    are padded to a multiple of nsub with blocks of length 0, as JAX pads
+    them.  The outputs are K1a's bit for bit (the plain version ignores
+    nsub)."""
+    if nsub not in NSUB_ENCODE:
+        raise ValueError(f"nsub must be one of {NSUB_ENCODE}, got {nsub}")
     dev = _one_device(t for p in planes for t in p[:3])
     if dev.type == "cpu":
         return [rans_encode_chain_ref(*p) for p in planes]
-    rows, outs, cta = [], [], 0
+    rows, outs, keep, cta = [], [], [], 0
     for p in planes:
         _check_encode_plane(p)
         nb, k, lanes = p.syms.shape
         _kseg, nseg = _segments(k)
+        nb_pad = -(-nb // nsub) * nsub
+        syms = _pad_blocks(p.syms, nb_pad)
+        lens = _pad_blocks(p.lens, nb_pad)
+        keep.append((syms, lens))  # padded copies live until the launch
         out = (
-            torch.empty((nb, lanes), dtype=torch.int32, device=dev),
-            torch.empty((nb, k, lanes), dtype=torch.int16, device=dev),
-            torch.empty((nb, k, num_ballot_words(lanes)), dtype=torch.int32,
-                        device=dev),
-            torch.zeros(nb * nseg, dtype=torch.int32, device=dev),
+            torch.empty((nb_pad, lanes), dtype=torch.int32, device=dev),
+            torch.empty((nb_pad, k, lanes), dtype=torch.int16, device=dev),
+            torch.empty((nb_pad, k, num_ballot_words(lanes)),
+                        dtype=torch.int32, device=dev),
+            torch.zeros(nb_pad * nseg, dtype=torch.int32, device=dev),
         )
         rows.append(dict(
-            syms=p.syms.data_ptr(), lens=p.lens.data_ptr(),
+            syms=syms.data_ptr(), lens=lens.data_ptr(),
             fc=p.fc.data_ptr(), states=out[0].data_ptr(),
             words=out[1].data_ptr(), ballots=out[2].data_ptr(),
             counts=out[3].data_ptr(), starts=0, nidx=p.fc.numel(),
-            nblocks=nb, lanes=lanes, chunk_len=k, prob_bits=p.prob_bits,
+            nblocks=nb_pad, lanes=lanes, chunk_len=k, prob_bits=p.prob_bits,
             ctx_mode=int(p.ctx_mode), cta0=cta, grp0=0,
         ))
-        outs.append(out)
-        cta += -(-nb * lanes // CHAIN_THREADS)
+        outs.append((out[0][:nb], out[1][:nb], out[2][:nb],
+                     out[3][: nb * nseg]))
+        cta += -(-nb_pad // nsub * lanes // CHAIN_THREADS)
     descs = _descriptors(rows, ENC_FIELDS)
-    kernels.launch("rans_encode_chain", "fpvt_rans_encode_chain", dev,
-                   descs.ctypes.data, len(rows), cta)
+    if nsub == 1:
+        kernels.launch("rans_encode_chain", "fpvt_rans_encode_chain", dev,
+                       descs.ctypes.data, len(rows), cta)
+    else:
+        kernels.launch("rans_encode_chain", "fpvt_rans_encode_chain_nsub",
+                       dev, descs.ctypes.data, len(rows), cta, nsub)
     return outs
 
 
@@ -438,6 +528,62 @@ def rans_decode_ref(
     Inputs as :class:`DecodePlane`.  Returns (syms u8 [nblocks, K, lanes]
     — zero beyond each lane's length, nibbles in ctx mode — and ok i32
     [nblocks, lanes])."""
+    return rans_decode_variant_ref(counts, starts, states, lens, table,
+                                   payload, chunk_len, prob_bits, ctx_mode)
+
+
+def _payload_words(pay: torch.Tensor, base: torch.Tensor, ptr: torch.Tensor,
+                   total: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
+    """The words a step reads: for each block, ``pay`` at its segment's
+    start ``base`` + the carried pointer ``ptr`` - the step's renorm count
+    ``total`` + each lane's ``rank``, clamped to the payload (as K2 reads
+    it; [nblocks] int64 except ``rank`` [nblocks, lanes])."""
+    pos = (base + ptr - total)[:, None] + rank
+    if not pay.numel():
+        return torch.zeros_like(pos)
+    return pay[pos.clamp(0, pay.numel() - 1)]
+
+
+def rans_decode_variant_ref(
+    counts: torch.Tensor,
+    starts: torch.Tensor,
+    states: torch.Tensor,
+    lens: torch.Tensor,
+    table: torch.Tensor,
+    payload: torch.Tensor,
+    chunk_len: int,
+    prob_bits: int = PROB_BITS,
+    ctx_mode: bool = False,
+    *,
+    stub_tables: bool = False,
+    stub_window: bool = False,
+    stub_class: int = 0,
+    fused_tab: bool = True,
+    nsub: int = 1,
+):
+    """Plain PyTorch K2 and its variants (JAX ``decode_pallas``'s flags):
+    a vectorized loop over symbol steps.  Inputs and outputs as
+    :func:`rans_decode_ref`, which is this with every flag off.
+
+    * ``stub_tables``: the entry is arithmetic of the table lookup's
+      dependency shape (sym = slot & 0xFF, f = (slot & fmask/4) + 1, off =
+      slot - f); ``table`` is not read.  ``stub_window``: no word is read
+      and a renormalising lane takes 0x8000, the pointer still moving by
+      the step's renorm count.  Either makes the output meaningless but
+      deterministic.
+    * ``stub_class`` N: ``table`` is N copies of the fused table and lane
+      l reads copy (l % 128) % N (JAX's class is the column of the [8,
+      128] lane layout); the output equals K2's for identical copies.
+    * ``fused_tab=False``: the two-table lookup slot -> sym -> fc on
+      :func:`two_table`'s layout.
+    * ``prob_bits`` 11 or 10 (order-0): a fused table of 2^prob_bits
+      entries (:func:`fused_table_arrays`).
+    * ``nsub`` is launch geometry only: the plain version ignores it.
+
+    The word read is K2's (the clamped payload position,
+    :func:`_payload_words`); JAX's windowed read returns 0 outside its
+    rows, which only a replica's meaningless pointers reach."""
+    del nsub
     nb, lanes = states.shape
     k = chunk_len
     kseg, nseg = _segments(k)
@@ -446,7 +592,6 @@ def rans_decode_ref(
     fmask = (1 << prob_bits) - 1
     tab = table.to(torch.int64) & _U32
     pay = payload.to(torch.int64) & 0xFFFF
-    total_words = pay.numel()
     cnt = counts.to(torch.int64).view(nb, nseg)
     st = starts.to(torch.int64).view(nb, nseg)
     lens64 = lens.to(torch.int64)
@@ -454,6 +599,10 @@ def rans_decode_ref(
     out = torch.zeros((nb, k, lanes), dtype=torch.uint8, device=dev)
     prev = torch.zeros((nb, lanes), dtype=torch.int64, device=dev)
     seg_ok = torch.ones(nb, dtype=torch.bool, device=dev)
+    cls = 0
+    if stub_class:
+        lane = torch.arange(lanes, dtype=torch.int64, device=dev)
+        cls = ((lane & 127) % stub_class) * (tab.numel() // stub_class)
     ptr = base = None
     # past every lane's length a step changes nothing: only the segment
     # boundaries' checks remain
@@ -467,21 +616,38 @@ def rans_decode_ref(
             ptr = cnt[:, j // kseg].clone()
             base = st[:, j // kseg]
         active = j < lens64
-        idx = x & fmask
-        if ctx_mode:
-            idx = idx + (_ctx_of(prev) << prob_bits)
-        e = tab[idx]
-        sym = e & ((1 << sym_bits) - 1)
-        f = ((e >> sym_bits) & fmask) + 1
-        xn = f * (x >> prob_bits) + (e >> (sym_bits + prob_bits))
+        slot = x & fmask
+        ctx = _ctx_of(prev) if ctx_mode else 0
+        if stub_tables:
+            sym = slot & 0xFF
+            f = (slot & (fmask >> 2)) + 1
+            off = (slot - f) & _U32
+        elif not fused_tab:
+            if ctx_mode:
+                idx = (ctx << prob_bits) + slot
+                sym = (tab[idx >> 3] >> ((idx & 7) * 4)) & 0xF
+                pi = ctx * CTX_ALPHA + sym
+                e = (tab[TWO_TABLE_SYM + (pi >> 1)] >> ((pi & 1) * 16)
+                     ) & 0x3FFF
+            else:
+                sym = (tab[slot >> 2] >> ((slot & 3) * 8)) & 0xFF
+                e = tab[TWO_TABLE_SYM + sym]
+            f = (e & fmask) + 1
+            off = (slot - (e >> prob_bits)) & _U32
+        else:
+            e = tab[slot + (ctx << prob_bits) + cls]
+            sym = e & ((1 << sym_bits) - 1)
+            f = ((e >> sym_bits) & fmask) + 1
+            off = e >> (sym_bits + prob_bits)
+        xn = (f * (x >> prob_bits) + off) & _U32
         renorm = active & (xn < RANS_L)
         r = renorm.to(torch.int64)
         total = r.sum(dim=1)
-        pos = (base + ptr - total)[:, None] + torch.cumsum(r, dim=1) - r
-        if total_words:
-            w = pay[pos.clamp(0, total_words - 1)]
+        if stub_window:
+            w = torch.full_like(xn, 0x8000)
         else:
-            w = torch.zeros_like(pos)
+            rank = torch.cumsum(r, dim=1) - r
+            w = _payload_words(pay, base, ptr, total, rank)
         xn = torch.where(renorm, (xn << 16) | w, xn)
         x = torch.where(active, xn, x)
         ptr = ptr - total
@@ -514,12 +680,13 @@ def staged_payload(payload: torch.Tensor) -> torch.Tensor:
     return buf[:n]
 
 
-def _check_decode_plane(p: DecodePlane) -> None:
+def _check_decode_plane(p: DecodePlane, tables: bool = True) -> None:
+    """K2's checks of a plane; ``tables=False`` leaves the table and the
+    precision to the caller (the variants)."""
     kernels.check_cuda(p.counts, torch.int32, "counts")
     kernels.check_cuda(p.starts, torch.int64, "starts")
     kernels.check_cuda(p.states, torch.int32, "states")
     kernels.check_cuda(p.lens, torch.int32, "lens")
-    kernels.check_cuda(p.table, torch.int32, "table")
     kernels.check_cuda(p.payload, torch.int16, "payload")
     nb, lanes = p.states.shape
     _kseg, nseg = _segments(p.chunk_len)
@@ -528,13 +695,16 @@ def _check_decode_plane(p: DecodePlane) -> None:
         raise ValueError("lens must be [nblocks, lanes]")
     if p.counts.numel() != nb * nseg or p.starts.numel() != nb * nseg:
         raise ValueError("one count and start per (block, segment) needed")
-    if p.table.numel() != 1 << PROB_BITS:
-        raise ValueError("fused decode table must have 4096 entries")
-    if p.table.data_ptr() % 16:
-        raise ValueError("the fused decode table must be 16-byte aligned")
-    if p.prob_bits != (CTX_PROB_BITS if p.ctx_mode else PROB_BITS):
-        raise ValueError("the fused tables fix prob_bits: 12, or 7 in ctx "
-                         "mode")
+    if tables:
+        kernels.check_cuda(p.table, torch.int32, "table")
+        if p.table.numel() != 1 << PROB_BITS:
+            raise ValueError("fused decode table must have 4096 entries")
+        if p.table.data_ptr() % 16:
+            raise ValueError("the fused decode table must be 16-byte "
+                             "aligned")
+        if p.prob_bits != (CTX_PROB_BITS if p.ctx_mode else PROB_BITS):
+            raise ValueError("the fused tables fix prob_bits: 12, or 7 in "
+                             "ctx mode")
     if p.payload.numel() >= 1 << 31:
         raise ValueError("a plane's payload must have fewer than 2^31 words")
     if not is_staged(p.payload):
@@ -573,4 +743,91 @@ def rans_decode_grouped(planes: list[DecodePlane]) -> list[tuple]:
     threads = max(r["lanes"] for r in rows)  # a thread per lane
     kernels.launch("rans_decode", "fpvt_rans_decode", dev, descs.ctypes.data,
                    len(rows), cta, threads)
+    return outs
+
+
+def _variant_table_words(key: tuple) -> int | None:
+    """Entries of the table tensor a variant reads (None: any, unread)."""
+    ctx, stub_tables, _sw, stub_class, prob_bits, fused_tab, _n = key
+    if stub_tables:
+        return None
+    if not fused_tab:
+        return TWO_TABLE_SYM + 256
+    return (1 << (12 if ctx else prob_bits)) * max(1, stub_class)
+
+
+def rans_decode_variant(
+    planes: list[DecodePlane],
+    *,
+    stub_tables: bool = False,
+    stub_window: bool = False,
+    stub_class: int = 0,
+    fused_tab: bool = True,
+    nsub: int = 1,
+) -> list[tuple]:
+    """One of K2's measurement variants (see
+    :func:`rans_decode_variant_ref` for the flags) on a list of planes of
+    one coding, one launch -> per plane (syms, ok).  Each plane's
+    ``prob_bits`` is its precision (12 or, for the fused-rows variants,
+    11 or 10; 7 in ctx mode).  With ``nsub`` a CTA decodes nsub blocks,
+    each plane's blocks padded to a multiple of nsub (states RANS_L,
+    lengths 0), as JAX pads them.  On the card only the combinations in
+    :data:`VARIANTS` exist (1024-lane blocks, or at least 64 lanes); any
+    other raises ValueError."""
+    dev = _one_device(t for p in planes for t in p[:6])
+    flags = dict(stub_tables=stub_tables, stub_window=stub_window,
+                 stub_class=stub_class, fused_tab=fused_tab, nsub=nsub)
+    if dev.type == "cpu":
+        return [rans_decode_variant_ref(*p, **flags) for p in planes]
+    ctx = planes[0].ctx_mode
+    key = (ctx, stub_tables, stub_window, stub_class, planes[0].prob_bits,
+           fused_tab, nsub)
+    if key not in VARIANTS:
+        raise ValueError(f"no K2 variant {key} on the card (VARIANTS)")
+    words = _variant_table_words(key)
+    rows, outs, keep, cta = [], [], [], 0
+    for p in planes:
+        if p.ctx_mode != ctx or p.prob_bits != key[4]:
+            raise ValueError("the planes of a variant launch share coding "
+                             "and precision")
+        _check_decode_plane(p, tables=False)
+        kernels.check_cuda(p.table, torch.int32, "table")
+        if words is not None and p.table.numel() != words:
+            raise ValueError(f"this variant reads {words} table entries, "
+                             f"got {p.table.numel()}")
+        if p.table.data_ptr() % 16:
+            raise ValueError("the decode table must be 16-byte aligned")
+        nb, lanes = p.states.shape
+        if lanes < 64:
+            raise ValueError("K2's variants take blocks of 64 lanes or more")
+        nb_pad = -(-nb // nsub) * nsub
+        _kseg, nseg = _segments(p.chunk_len)
+        counts = _pad_blocks(p.counts.view(nb, nseg), nb_pad)
+        starts = _pad_blocks(p.starts.view(nb, nseg), nb_pad)
+        states = _pad_blocks(p.states, nb_pad, RANS_L)
+        lens = _pad_blocks(p.lens, nb_pad)
+        out = (
+            torch.empty((nb_pad, p.chunk_len, lanes), dtype=torch.uint8,
+                        device=dev),
+            torch.empty((nb_pad, lanes), dtype=torch.int32, device=dev),
+        )
+        rows.append(dict(
+            counts=counts.data_ptr(), starts=starts.data_ptr(),
+            states=states.data_ptr(), lens=lens.data_ptr(),
+            table=p.table.data_ptr(), payload=p.payload.data_ptr(),
+            out=out[0].data_ptr(), ok=out[1].data_ptr(),
+            total_words=p.payload.numel(), nblocks=nb_pad, lanes=lanes,
+            chunk_len=p.chunk_len, prob_bits=p.prob_bits,
+            ctx_mode=int(ctx), cta0=cta,
+        ))
+        keep.append((counts, starts, states, lens))  # until the launch
+        outs.append((out[0][:nb], out[1][:nb]))
+        cta += nb_pad // nsub
+    descs = _descriptors(rows, DEC_FIELDS)
+    threads = max(r["lanes"] for r in rows)
+    kernels.launch("rans_decode_variant", "fpvt_rans_decode_variant", dev,
+                   descs.ctypes.data, len(rows), cta, threads,
+                   int(stub_tables), int(stub_window), stub_class,
+                   key[4] if not ctx else PROB_BITS, int(not fused_tab),
+                   nsub, int(ctx))
     return outs

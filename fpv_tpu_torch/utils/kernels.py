@@ -35,15 +35,17 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "fpv_tpu_torch"
-SOURCES = ("rans_encode.cu", "rans_decode.cu", "cg2d_decode.cu",
-           "cg_flat_decode.cu")
+SOURCES = ("rans_encode.cu", "rans_decode.cu", "rans_decode_variants.cu",
+           "cg2d_decode.cu", "cg_flat_decode.cu")
+HEADERS = ("rans_decode_step.cuh",)  # included by the sources; hashed too
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 LAUNCHES = {"rans_encode_chain": 0, "rans_encode_place": 0,
-            "rans_decode": 0, "cg2d_decode": 0, "cg_flat_decode": 0}
+            "rans_decode": 0, "rans_decode_variant": 0, "cg2d_decode": 0,
+            "cg_flat_decode": 0}
 
 _BUILD_LOCK = threading.RLock()  # the build and the load of the library
 _COUNT_LOCK = threading.Lock()  # LAUNCHES updates
@@ -56,10 +58,16 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # descs, ndesc, nctas, stream
     "fpvt_rans_encode_chain": (_P, _I, _I, _P),
+    # descs, ndesc, nctas, nsub, stream
+    "fpvt_rans_encode_chain_nsub": (_P, _I, _I, _I, _P),
     # descs, ndesc, ngroups, payload, stream
     "fpvt_rans_encode_place": (_P, _I, _I, _P, _P),
     # descs, ndesc, nctas, threads, stream
     "fpvt_rans_decode": (_P, _I, _I, _I, _P),
+    # descs, ndesc, nctas, threads, stub_tables, stub_window, classes,
+    # prob_bits, two_table, nsub, ctx, stream
+    "fpvt_rans_decode_variant": (_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                 _P),
     # res, out, b, h, w, stream
     "fpvt_cg2d_decode": (_P, _P, _I, _I, _I, _P),
     # res, out, b, rows, x, stream
@@ -91,7 +99,7 @@ def _nvcc() -> str:
 
 def library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libfpvt_kernels_{h.hexdigest()[:16]}.so"

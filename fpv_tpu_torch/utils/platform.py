@@ -49,3 +49,16 @@ def open_device(name: str, tool: str) -> torch.device | None:
     except RuntimeError as e:
         sys.stderr.write(f"{tool}: {e}\n")
         return None
+
+
+def argv_device(argv: list[str] | None, tool: str
+                ) -> tuple[list[str], torch.device]:
+    """:func:`take_device` then :func:`open_device` for a script's main:
+    (the other arguments, the device); exits with status 1 after the
+    message when the device cannot be used (no card and no ``--device
+    cpu``)."""
+    argv, name = take_device(sys.argv[1:] if argv is None else argv)
+    dev = open_device(name, tool)
+    if dev is None:
+        raise SystemExit(1)
+    return argv, dev

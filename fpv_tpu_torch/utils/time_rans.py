@@ -22,6 +22,17 @@ call.
 
 from __future__ import annotations
 
+import os
+import sys
+
+if __name__ == "__main__":
+    # Run as a file (the second form above), Python puts this directory
+    # first on the path, where platform.py (the tools' --device parser)
+    # would shadow the standard library's platform module that numpy and
+    # torch import: drop it, so the package comes from PYTHONPATH.
+    _here = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != _here]
+
 import argparse
 import json
 import statistics

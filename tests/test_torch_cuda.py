@@ -17,6 +17,7 @@ import fpv_tpu_torch
 from fpv_tpu_torch.entropy.tables import normalize_freqs, normalize_freqs_ctx
 from fpv_tpu_torch.entropy.plane_codec import ctx_indices_device
 from fpv_tpu_torch.ops import predict as tpredict
+from fpv_tpu_torch.ops import rans_bound
 from fpv_tpu_torch.ops import rans_cuda as tc
 from fpv_tpu_torch.ops.rans_layout import BLOCK_LANES, CTX_PROB_BITS, chunk_lens
 from fpv_tpu_torch.utils import testdata
@@ -782,3 +783,61 @@ def test_sharded_codec_roundtrip_on_card(cuda):
                                           "rans_encode_place",
                                           "rans_decode")] == [2, 2, 2]
     tmesh.multichip_dryrun(2, mesh=tmesh.make_mesh(devices=[cuda, cuda]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", sorted(tc.VARIANTS),
+                         ids=[rans_bound.variant_label(k)
+                              for k in sorted(tc.VARIANTS)])
+def test_decode_variant_matches_plain(cuda, key):
+    """Every K2 variant on the card (csrc/rans_decode_variants.cu) equals
+    its plain version bit for bit, on 3 blocks (which nsub 2, 4 and 8 do
+    not divide) with a short last lane; the class, two-table, precision
+    and nsub variants decode the stream as K2 does."""
+    planes, flags, want = rans_bound.variant_case(key)
+    got = tc.rans_decode_variant([_on_card(p, cuda) for p in planes],
+                                 **flags)
+    for p, (g_syms, g_ok) in zip(planes, got):
+        r_syms, r_ok = tc.rans_decode_variant_ref(*p, **flags)
+        torch.testing.assert_close(g_syms.cpu(), r_syms, rtol=0, atol=0)
+        torch.testing.assert_close(g_ok.cpu(), r_ok, rtol=0, atol=0)
+        if want is not None:
+            torch.testing.assert_close(g_syms.cpu(), want, rtol=0, atol=0)
+            assert bool((g_ok == 1).all())
+
+
+@pytest.mark.cuda
+def test_decode_variant_refuses_what_is_not_built(cuda):
+    """A combination the card has no kernel for, narrow blocks and a
+    table of the wrong size raise before any launch."""
+    planes, flags, _w = rans_bound.variant_case(
+        (False, False, False, 2, 12, True, 1))
+    p = _on_card(planes[0], cuda)
+    with pytest.raises(ValueError, match="no K2 variant"):
+        tc.rans_decode_variant([p], stub_window=True)
+    with pytest.raises(ValueError, match="table entries"):
+        tc.rans_decode_variant([p], stub_class=3)
+    syms, lens, fc, table = _case(6144, 1024, False, 1, lanes=32)
+    enc = _check_encode(cuda, [tc.EncodePlane(syms, lens, fc)])
+    narrow = _on_card(_decode_planes(enc, [tc.EncodePlane(syms, lens, fc)],
+                                     [table])[0], cuda)
+    with pytest.raises(ValueError, match="64 lanes"):
+        tc.rans_decode_variant([narrow], nsub=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nsub", [2, 4, 8])
+@pytest.mark.parametrize("ctx", [False, True], ids=["order0", "ctx16"])
+def test_encode_chain_nsub_equals_k1a(cuda, ctx, nsub):
+    """K1a with nsub chains per thread writes K1a's states, words, ballots
+    and counts bit for bit, on 3 blocks (padded to a multiple of nsub)."""
+    syms, lens, fc, _table = _case(3 * 64 * LANES - 500, 64, ctx, seed=nsub)
+    pb = CTX_PROB_BITS if ctx else 12
+    plane = tc.EncodePlane(syms.to(cuda), lens.to(cuda), fc.to(cuda), pb,
+                           ctx)
+    ref = tc.rans_encode_chain([plane])[0]
+    got = tc.rans_encode_chain([plane], nsub=nsub)[0]
+    plain = tc.rans_encode_chain_ref(syms, lens, fc, pb, ctx)
+    for g, r, q in zip(got, ref, plain):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+        torch.testing.assert_close(g.cpu(), q, rtol=0, atol=0)

@@ -12,6 +12,7 @@ API is held to the JAX package in test_torch_file_api.py.
 """
 
 import struct
+import os
 import subprocess
 import sys
 import pathlib
@@ -184,6 +185,11 @@ def test_import_leaves_out_jax_and_fpv_tpu():
         "import fpv_tpu_torch.parallel.mesh\n"
         "import fpv_tpu_torch.parallel.distributed\n"
         "import fpv_tpu_torch.utils.profiling\n"
+        "import fpv_tpu_torch.ops.rans_bound\n"
+        "import fpv_tpu_torch.studies.temporal_study\n"
+        "import fpv_tpu_torch.studies.class_tables_study\n"
+        "import fpv_tpu_torch.studies.ctx_study\n"
+        "import fpv_tpu_torch.studies.large_frame_study\n"
         "import importlib.util\n"
         "if importlib.util.find_spec('pyarrow'):\n"
         "    import fpv_tpu_torch.batch.arrow\n"
@@ -197,3 +203,21 @@ def test_import_leaves_out_jax_and_fpv_tpu():
         text=True, check=True,
     )
     assert out.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("script", ["time_rans.py", "time_cg2d.py"])
+def test_timing_scripts_run_as_files(script, tmp_path):
+    """``PYTHONPATH=<checkout> python3 fpv_tpu_torch/utils/<script>`` (how
+    two trees are timed in one call) imports: the script's own directory,
+    whose platform.py would shadow the standard library's, is left off
+    the path.  Without a card the script then stops at its device check."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the script would run in full")
+    out = subprocess.run(
+        [sys.executable, str(REPO / "fpv_tpu_torch" / "utils" / script)],
+        cwd=tmp_path, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert out.returncode != 0
+    assert "torch.cuda.is_available() is false" in out.stderr, out.stderr
