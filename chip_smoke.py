@@ -31,7 +31,17 @@
 7. On the main corpus file: random access (``decode_frame``) against the
    full decode, every batch's previews against previews of the decoded
    frames (K3 runs on CG2D previews), and the streaming reader fed in
-   1 MiB pieces.
+   1 MiB pieces.  Then the module-level decode API on the same file: per
+   batch ``batch_decode_args`` + ``fused_decode_batch`` (with previews,
+   and with ``pack_u8``) equal to the reader's frames and previews, one
+   K2 launch a call and K3 as its CG2D flags ask; ``fused_decode_preview``
+   per batch and ``fused_decode_frame`` at frames 33 and 40 (with the
+   arguments the JAX reader builds) equal to ``decode_previews`` and
+   ``decode_frame``; ``sharded_fused_decode`` at D = 1 and D = 2 logical
+   shards equal to the per-section calls; the device-resident decode of
+   one batch (inputs staged, CUDA events around the call, median of 10);
+   the four ``fpv_tpu_torch.examples`` as subprocesses with ``--device
+   cuda``.  One ``decode_api`` JSON line.
 8. The serving hubs (``api/multistream.py``): the encode hub on two
    camera streams (corpus frames 0-63 and 64-127, pushed interleaved),
    each stream lossless and byte-equal to a single-threaded
@@ -144,9 +154,15 @@ from fpv_tpu_torch.api.fpvt_codec import (
     FpvtReader,
     FpvtStreamingReader,
     FpvtWriter,
+    _frame_decode_args,
+    _preview_decode_args,
+    batch_decode_args,
     decode_file_fpvt,
     encode_file_fpvt,
     encode_model_step,
+    fused_decode_batch,
+    fused_decode_frame,
+    fused_decode_preview,
     pv_chunk_len,
     warmup_stream,
 )
@@ -201,6 +217,8 @@ from fpv_tpu_torch.parallel.mesh import (
     sharded_codec_roundtrip,
     sharded_decode_file,
     sharded_encode_file,
+    sharded_fused_decode,
+    stack_decode_args,
 )
 from fpv_tpu_torch.studies import (
     class_tables_study,
@@ -677,6 +695,187 @@ def check_grouped_launches(data: bytes, enc: dict, dec: dict) -> None:
         raise AssertionError(f"grouped launches {got}, want {want}")
     print("main path grouped launches", json.dumps(dict(
         batches=want["batches"], encode=enc, decode=dec)), flush=True)
+
+
+
+# ---------------------------------------------------------------------------
+# the module-level decode API (batch_decode_args, fused_decode_batch,
+# fused_decode_frame, fused_decode_preview, sharded_fused_decode)
+
+DECODE_ARGS = ("payload", "plane_offs", "counts", "states", "flags",
+               "sym_tabs", "fcs")
+DECODE_API_REPS = 10  # timed calls of the device-resident decode
+EXAMPLES = ("fpv1_compat", "fpvt_pipeline", "multichip", "serving_hubs")
+
+
+def api_call(fn):
+    """(result, K2 launches, K3 launches) of one decode API call,
+    synchronized."""
+    k2, k3 = kernels.LAUNCHES["rans_decode"], kernels.LAUNCHES["cg2d_decode"]
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, kernels.LAUNCHES["rans_decode"] - k2,
+            kernels.LAUNCHES["cg2d_decode"] - k3)
+
+
+def batch_call(r: FpvtReader, arrays: dict, static: dict, n: int, **kw):
+    """``fused_decode_batch`` of ``batch_decode_args``' arrays (numpy:
+    uploaded to the card by the call; or tensors) for ``n`` frames."""
+    return fused_decode_batch(
+        *[arrays[a] for a in DECODE_ARGS], r._delta_high, r._delta_low,
+        arrays["const_vals"], chunk_len=1 << r.header.chunk_log2, b=n,
+        h=r.header.ysize, w=r.header.xsize, **static, **kw)
+
+
+def fused_frame(r: FpvtReader, index: int):
+    """Frame ``index`` through ``fused_decode_frame`` with the arguments
+    the JAX package's reader builds, walking a prev-frame chain from its
+    anchor as that reader does -> (int32 [H, W] on the card, K2 launches,
+    K3 launches)."""
+    h, w, k = r.header.ysize, r.header.xsize, 1 << r.header.chunk_log2
+    bi, j = r._frame_to_batch[index]
+    pb = r._parse_batch(r._batches[bi][0])
+    j0 = j
+    while j0 > 0 and pb.frame_flags[j0] & fpvt.F_USE_PREV:
+        j0 -= 1
+    dh, dl, k2, k3 = r._delta_high, r._delta_low, 0, 0
+    for t in range(j0, j + 1):
+        args, kw = _frame_decode_args(pb, t, h, w, k)
+        (img, ok), n2, n3 = api_call(lambda: fused_decode_frame(
+            *args, dh, dl, device=r._device, **kw))
+        if not bool(ok) or n2 != 1:
+            raise AssertionError(f"fused_decode_frame({index}, t={t}): ok "
+                                 f"{bool(ok)}, {n2} K2 launches")
+        k2, k3 = k2 + n2, k3 + n3
+        dh, dl = (img >> 8).to(torch.uint8), (img & 0xFF).to(torch.uint8)
+    return img, k2, k3
+
+
+def run_examples() -> dict:
+    """The four ``fpv_tpu_torch.examples`` as subprocesses on the card,
+    all started at once -> name -> wall s (a non-zero exit fails)."""
+    def one(name):
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", f"fpv_tpu_torch.examples.{name}",
+             "--device", "cuda"], capture_output=True, cwd=REPO, timeout=600)
+        if p.returncode:
+            raise AssertionError(f"example {name}: exit {p.returncode}: "
+                                 f"{p.stderr[-2000:]!r}")
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(EXAMPLES)) as pool:
+        return dict(zip(EXAMPLES, pool.map(one, EXAMPLES)))
+
+
+def check_decode_api(data: bytes, out: np.ndarray, dev, card: str) -> dict:
+    """The module-level decode API on the main corpus file, against the
+    reader: per batch ``batch_decode_args`` + ``fused_decode_batch`` with
+    previews (frames and previews equal the reader's) and with ``pack_u8``
+    (the bytes viewed as ``<u2`` equal the frames), each call one K2 launch
+    and as many K3 launches as its CG2D flags ask for;
+    ``fused_decode_preview`` of every batch equal to ``decode_previews``;
+    ``fused_decode_frame`` at frames 33 and 40 equal to ``decode_frame``;
+    ``sharded_fused_decode`` at D = 1 (the card) and D = 2 logical shards
+    (two sections stacked) equal to the per-section calls, one K2 launch
+    a shard; the device-resident decode of one batch (inputs staged on
+    the card, CUDA events around the call, median of 10 after a warm-up;
+    and per call with calls queued back to back) beside the reader's
+    decode of the same batch from its own staging;
+    the four examples as subprocesses with ``--device cuda``."""
+    r = FpvtReader(data, device=dev)
+    h, w, k = r.header.ysize, r.header.xsize, 1 << r.header.chunk_log2
+    row = dict(card=card, frames_per_batch=FPB, k2_k3_per_batch_call=[],
+               k2_k3_per_preview_call=[])
+    sections = []
+    for bi, (off, n) in enumerate(r._batches):
+        pb = r._parse_batch(off)
+        arrays, static = batch_decode_args(pb, k)
+        sections.append(pb)
+        s = 1 + bi * FPB
+        want_pv = r.decode_previews(bi)
+        for pack in (False, True):
+            got, n2, n3 = api_call(lambda: batch_call(
+                r, arrays, static, n, decode_preview=not pack, pack_u8=pack))
+            want3 = int(static["any_cg"]) + int(
+                not pack and static["pv_any_cg"])
+            row["k2_k3_per_batch_call"].append([n2, n3])
+            if n2 != 1 or n3 != want3 or not bool(got[1]):
+                raise AssertionError(f"batch {bi} (pack_u8={pack}): {n2} K2 "
+                                     f"/ {n3} K3 launches, want 1 / {want3};"
+                                     f" ok {bool(got[1])}")
+            frames = got[0].cpu().numpy()
+            if pack:
+                frames = frames.view("<u2").reshape(n, h, w)
+            if not np.array_equal(frames, out[s : s + n]):
+                raise AssertionError(f"batch {bi} (pack_u8={pack}): frames "
+                                     "differ from the reader's")
+            if not pack and not np.array_equal(got[2].cpu().numpy(),
+                                               want_pv):
+                raise AssertionError(f"batch {bi}: previews differ from "
+                                     "the reader's")
+        args, kw = _preview_decode_args(pb, h, w)
+        (pv, ok), n2, n3 = api_call(lambda: fused_decode_preview(
+            *args, r._delta_high, device=dev, **kw))
+        row["k2_k3_per_preview_call"].append([n2, n3])
+        if (not bool(ok) or n2 != 1 or n3 != int(kw["pv_any_cg"])
+                or not np.array_equal(pv.cpu().numpy(), want_pv)):
+            raise AssertionError(f"fused_decode_preview of batch {bi}: ok "
+                                 f"{bool(ok)}, {n2} K2, {n3} K3, or the "
+                                 "previews differ")
+    for index in (1 + FPB, 1 + FPB + 7):
+        img, n2, n3 = fused_frame(r, index)
+        row[f"frame_{index}_k2_k3"] = [n2, n3]
+        if not np.array_equal(img.cpu().numpy(), r.decode_frame(index)):
+            raise AssertionError(f"fused_decode_frame({index}) differs from "
+                                 "decode_frame")
+
+    # the sharded decode: D = 1 on the card, D = 2 logical shards of it
+    n = r._batches[0][1]
+    for d, mesh in ((1, make_mesh()), (2, make_mesh(devices=[dev, dev]))):
+        stack, static = stack_decode_args(sections[:d], k)
+        step = sharded_fused_decode(mesh, chunk_len=k, b=n, h=h, w=w,
+                                    decode_preview=True, **static)
+        got, n2, n3 = api_call(lambda: step(
+            *[stack[a] for a in DECODE_ARGS], r._delta_high, r._delta_low,
+            stack["const_vals"]))
+        row[f"sharded_d{d}_k2_k3"] = [n2, n3]
+        if n2 != d or got[0].shape != (d, n * h, 2 * w):
+            raise AssertionError(f"sharded_fused_decode D = {d}: {n2} K2 "
+                                 f"launches, imgs {tuple(got[0].shape)}")
+        for i in range(d):
+            one = batch_call(r, {key: v[i] for key, v in stack.items()},
+                             static, n, decode_preview=True, pack_u8=True)
+            for g, o in zip(got, one):
+                if not torch.equal(g[i], o):
+                    raise AssertionError(f"sharded_fused_decode D = {d}: "
+                                         f"section {i} differs")
+            frames = got[0][i].cpu().numpy().view("<u2").reshape(n, h, w)
+            if not np.array_equal(frames, out[1 + i * FPB : 1 + i * FPB + n]):
+                raise AssertionError(f"sharded_fused_decode D = {d}: "
+                                     f"section {i} frames differ")
+
+    # the device-resident decode of one batch: inputs staged, events
+    # around the call (bench.py's decode field)
+    arrays, static = batch_decode_args(sections[0], k)
+    staged = {key: torch.from_numpy(v).to(dev) for key, v in arrays.items()}
+    torch.cuda.synchronize()
+    staged_rd = r._stage(sections[0], n)  # the reader's own staging
+    for pv in (True, False):
+        ms = cuda_ms(lambda: batch_call(r, staged, static, n,
+                                        decode_preview=pv), DECODE_API_REPS)
+        tag = "" if pv else "_nopv"
+        row[f"device_decode{tag}_ms"] = ms
+        row[f"device_decode{tag}_mpix_s"] = n * h * w / 1e3 / ms
+        # calls queued back to back: the card's time a call without the
+        # host's launch work in between
+        row[f"device_decode{tag}_queued_ms"] = busy_ms(
+            lambda: batch_call(r, staged, static, n, decode_preview=pv))
+        # the reader's decode of the same staged batch, finalize included
+        row[f"reader_staged_decode{tag}_ms"] = cuda_ms(
+            lambda: r._dispatch(staged_rd, pv, True)(), DECODE_API_REPS)
+    row["examples_s"] = run_examples()
+    return row
 
 
 HUB_HALF = N_FRAMES // 2  # frames per camera stream in the encode hub
@@ -2059,6 +2258,10 @@ def main() -> None:
     print("previews", json.dumps(row), flush=True)
     counted("streaming", ("rans_decode",),
             lambda: check_streaming(data, out, dev))
+    row, api_launches = counted(
+        "decode api", ("rans_decode", "cg2d_decode"),
+        lambda: check_decode_api(data, out, dev, card))
+    print("decode_api", json.dumps(row), flush=True)
 
     # the serving hubs, each phase counted on its own
     _none, dec_ms = timed_once(lambda: decode_file_fpvt(data, device=dev))
@@ -2102,7 +2305,9 @@ def main() -> None:
             + " + ".join(grouped["decoded_planes" if key == "dec"
                                  else "planes"]),
             bound_bytes=grouped[f"{key}_bytes"])
-        if key != "dec":
+        if key == "dec":
+            row["decode_api_launches"] = api_launches["rans_decode"]
+        else:
             # the pass's share of K1's bound, K1 whole beside it
             row.update(traffic_bytes=grouped[f"{key}_traffic_bytes"],
                        k1_ms=grouped["k1_ms"],
@@ -2138,6 +2343,7 @@ def main() -> None:
              replaces="fpv_tpu/ops/predict.py:231",
              launches=launches["cg2d_decode"],
              preview_launches=pv_launches["cg2d_decode"],
+             decode_api_launches=api_launches["cg2d_decode"],
              max_abs_err=max(r["max_abs_err"] for r in cg_rows),
              ms=cg_rows[0]["ms"], plain_ms=cg_rows[0]["plain_ms"],
              bound_ms=cg_rows[0]["bound_ms"], bound_by="bytes",

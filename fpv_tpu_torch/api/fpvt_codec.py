@@ -66,6 +66,7 @@ from fpv_tpu_torch.format.fpvt import (
     SPATIAL_UP,
     Header,
 )
+from fpv_tpu_torch.ops import rans_cuda
 from fpv_tpu_torch.ops.planes import (
     combine_planes,
     resolve_u8_shift,
@@ -82,12 +83,19 @@ from fpv_tpu_torch.ops.predict import (
 )
 from fpv_tpu_torch.ops.preview import generate_preview
 from fpv_tpu_torch.ops.rans_layout import (
+    BLOCK_COLS,
     BLOCK_LANES,
     CODING_CONST,
     CODING_CTX16,
     CODING_ORDER0,
     CODING_RAW,
     CTX_NIDX,
+    CTX_PROB_BITS,
+    PROB_BITS,
+    SEG_LEN,
+    chunk_lens,
+    num_blocks,
+    num_segments,
 )
 from fpv_tpu_torch.utils import kernels
 
@@ -144,13 +152,75 @@ def _sample_rows_rotating(plane: torch.Tensor, stride: int) -> torch.Tensor:
     return _frame_rows(plane, idx)
 
 
-def _cost(x: torch.Tensor) -> torch.Tensor:
-    """Per-frame sum of wraparound magnitudes of mod-256 residuals, summed
-    exactly in int64 and cast to float32 (the JAX package sums in float32,
-    which is exact while partial sums stay below 2^24)."""
+# The JAX package sums decision costs in float32, and on the CPU XLA's
+# TreeReductionRewriter fixes the order: a reduction of n >= 32 elements
+# becomes a reduce-window of 32 with "same" padding (p = 32*ceil(n/32) - n
+# zeros, p//2 of them before the first element), each window summed in
+# order from 0.0, until fewer than 32 partials remain, which are then summed
+# in order.  Near ties past 2^24 round differently in any other order, so
+# the port rebuilds this one with explicit elementwise float32 adds (never
+# torch.sum on floats, whose order differs between the CPU and the card).
+# Magnitudes are at most 128, so the first three levels (runs of 32^3
+# elements, sums below 2^22) are exact and come from int64 sums.
+_TREE = 32
+_EXACT_LEVELS = 3
+
+
+def _mags(x: torch.Tensor) -> torch.Tensor:
+    """[B, ...] u8 residuals -> [B, N] int32 wraparound magnitudes."""
     xi = x.to(torch.int32).reshape(x.shape[0], -1)
-    mag = torch.minimum(xi, 256 - xi)
-    return mag.sum(dim=1, dtype=torch.int64).to(torch.float32)
+    return torch.minimum(xi, 256 - xi)
+
+
+def _same_pad(n: int) -> tuple[int, int]:
+    """(front, back) zeros of one tree level over ``n`` >= 32 values."""
+    p = -(-n // _TREE) * _TREE - n
+    return p // 2, p - p // 2
+
+
+def _runs(n: int) -> tuple[int, int, int]:
+    """(front, run, count): where the exact levels' partials of ``n``
+    elements lie — run k covers elements [k*run - front, (k+1)*run - front)
+    of the flat input.  Below 32^3 elements the whole sum is one exact run."""
+    run = _TREE ** _EXACT_LEVELS
+    if n < run:
+        return 0, max(n, 1), 1
+    front, scale = 0, 1
+    for _ in range(_EXACT_LEVELS):
+        front += _same_pad(n)[0] * scale
+        n, scale = -(-n // _TREE), scale * _TREE
+    return front, run, n
+
+
+def _run_sums(mag: torch.Tensor) -> torch.Tensor:
+    """[B, N] magnitudes -> [B, count] int64 exact run sums (:func:`_runs`)."""
+    b, n = mag.shape
+    front, run, count = _runs(n)
+    pad = torch.nn.functional.pad(mag, (front, count * run - front - n))
+    return pad.reshape(b, count, run).sum(dim=2, dtype=torch.int64)
+
+
+def _tree_f32(runs: torch.Tensor) -> torch.Tensor:
+    """[B, M] int64 run sums -> [B] float32 sums, added in XLA:CPU's tree
+    order from the exact levels on."""
+    v = runs.to(torch.float32)
+    while v.shape[1] >= _TREE:
+        v = torch.nn.functional.pad(v, _same_pad(v.shape[1]))
+        v = v.reshape(v.shape[0], -1, _TREE)
+        acc = torch.zeros(v.shape[:2], dtype=torch.float32, device=v.device)
+        for i in range(_TREE):
+            acc = acc + v[:, :, i]
+        v = acc
+    acc = torch.zeros(v.shape[0], dtype=torch.float32, device=v.device)
+    for i in range(v.shape[1]):
+        acc = acc + v[:, i]
+    return acc
+
+
+def _cost(x: torch.Tensor) -> torch.Tensor:
+    """Per-frame float32 sum of wraparound magnitudes of mod-256
+    residuals, in the JAX package's order (see ``_TREE``)."""
+    return _tree_f32(_run_sums(_mags(x)))
 
 
 def _residual_cost(plane: torch.Tensor) -> torch.Tensor:
@@ -708,31 +778,53 @@ class FpvtWriter:
 # decode
 
 
-def _inverse_spatial(res: torch.Tensor, spatial: np.ndarray) -> torch.Tensor:
-    """Invert each frame's spatial predictor ([B] host flags 0/1/2): 'up'
-    frames by prefix sum, CG2D frames by the wavefront (K3)."""
+def _flag_hints(flags: np.ndarray) -> dict:
+    """Which inverse steps a batch's host frame flags ask for: the static
+    kwargs of the JAX package's decode programs (any_up, any_cg,
+    pv_any_up, pv_any_cg, any_pv_delta, any_prev)."""
+    spatial = (flags >> F_SPATIAL_SHIFT) & 3
+    pv_spatial = (flags >> F_PV_SPATIAL_SHIFT) & 3
+    return dict(
+        any_up=bool((spatial == SPATIAL_UP).any()),
+        any_cg=bool((spatial == SPATIAL_CG2D).any()),
+        pv_any_up=bool((pv_spatial == SPATIAL_UP).any()),
+        pv_any_cg=bool((pv_spatial == SPATIAL_CG2D).any()),
+        any_pv_delta=bool((flags & F_PV_USE_DELTA).any()),
+        any_prev=bool((flags & F_USE_PREV).any()),
+    )
+
+
+def _inverse_spatial(res: torch.Tensor, spatial, any_up: bool | None = None,
+                     any_cg: bool | None = None) -> torch.Tensor:
+    """Invert each frame's spatial predictor, ``spatial`` [B] modes 0/1/2
+    (a host array, or a tensor on ``res``'s device with the ``any_*``
+    hints saying which modes occur): 'up' by prefix sum, CG2D by the
+    wavefront (K3), each over the whole batch when a frame asks for it and
+    selected per frame, as the JAX package's program does."""
+    if isinstance(spatial, np.ndarray):
+        any_up = bool((spatial == SPATIAL_UP).any())
+        any_cg = bool((spatial == SPATIAL_CG2D).any())
+        spatial = upload(spatial.astype(np.int32), res.device)
     out = res
-    for mode, inverse in ((SPATIAL_UP, up_decode), (SPATIAL_CG2D, cg2d_decode)):
-        sel = np.flatnonzero(spatial == mode)
-        if sel.size:
-            if out is res:
-                out = res.clone()
-            idx = upload(sel, res.device)
-            out[idx] = inverse(res[idx])
+    if any_up:
+        out = _where3(spatial == SPATIAL_UP, up_decode(res), out)
+    if any_cg:
+        out = _where3(spatial == SPATIAL_CG2D, cg2d_decode(res), out)
     return out
 
 
 def _inverse_preview(
-    pv: torch.Tensor, flags: np.ndarray, delta_high: torch.Tensor
+    pv: torch.Tensor, flags: torch.Tensor, delta_high: torch.Tensor,
+    pv_any_up: bool, pv_any_cg: bool, any_pv_delta: bool,
 ) -> torch.Tensor:
-    """Invert a [B, ph, pw] preview residual batch: each frame's spatial
-    prediction, then the delta against the delta frame's preview
-    (F_PV_USE_DELTA)."""
-    pv = _inverse_spatial(pv, (flags >> F_PV_SPATIAL_SHIFT) & 3)
-    use_delta = (flags & F_PV_USE_DELTA) != 0
-    if use_delta.any():
+    """Invert a [B, ph, pw] preview residual batch (``flags`` [B] int32 on
+    its device): each frame's spatial prediction, then the delta against
+    the delta frame's preview (F_PV_USE_DELTA)."""
+    pv = _inverse_spatial(pv, (flags >> F_PV_SPATIAL_SHIFT) & 3, pv_any_up,
+                          pv_any_cg)
+    if any_pv_delta:
         pv_delta = generate_preview(delta_high[None])
-        pv = _where3(upload(use_delta, pv.device), pv + pv_delta, pv)
+        pv = _where3((flags & F_PV_USE_DELTA) != 0, pv + pv_delta, pv)
     return pv
 
 
@@ -762,29 +854,60 @@ def _decode_delta_planes(dflags, dh_stream, dl_stream, h, w, device):
     return dh[0], dl.reshape(h, w)
 
 
-def _apply_temporal(high, low, flags, delta_high, delta_low):
-    """Invert the temporal prediction: static delta-add, or (F_USE_PREV) a
-    mod-256 running sum over frames."""
-    use_delta = (flags & F_USE_DELTA) != 0
-    use_prev = (flags & F_USE_PREV) != 0
-    if not use_prev.any():
-        ud = upload(use_delta, high.device)
-        return (
-            _where3(ud, high + delta_high[None], high),
-            _where3(ud, low + delta_low[None], low),
-        )
-    hs, ls = high.clone(), low.clone()
-    # frame 0's "previous frame" is the delta section
-    ph, pl = delta_high, delta_low
-    for t in range(len(flags)):
-        if use_prev[t]:
-            hs[t] += ph
-            ls[t] += pl
-        elif use_delta[t]:
-            hs[t] += delta_high
-            ls[t] += delta_low
-        ph, pl = hs[t], ls[t]
-    return hs, ls
+def _apply_temporal(high, low, flags: torch.Tensor, delta_high, delta_low,
+                    any_prev: bool):
+    """Invert the temporal prediction (``flags`` [B] int32 on the planes'
+    device): static delta-add, or, when ``any_prev`` says a frame has
+    F_USE_PREV, a mod-256 running sum over frames (frame t adds frame
+    t-1's planes; frame 0's previous frame is the delta section), two
+    elementwise launches a frame and plane."""
+    ud = (flags & F_USE_DELTA) != 0
+    if not any_prev:
+        return (_where3(ud, high + delta_high[None], high),
+                _where3(ud, low + delta_low[None], low))
+    up = (flags & F_USE_PREV) != 0
+
+    def chain(res, delta):
+        static = _where3(ud, delta.expand_as(res), 0)  # per-frame delta add
+        out = torch.empty_like(res)
+        prev = delta
+        for t in range(res.shape[0]):
+            torch.add(res[t], torch.where(up[t], prev, static[t]), out=out[t])
+            prev = out[t]
+        return out
+
+    return chain(high, delta_high), chain(low, delta_low)
+
+
+def _decode_staged(
+    staged: plane_codec.StagedRanges, flags: torch.Tensor, b: int, h: int,
+    w: int, delta_high: torch.Tensor, delta_low: torch.Tensor,
+    previews: bool, hints: dict,
+):
+    """The one batch decode path, shared by :class:`FpvtReader` and
+    :func:`fused_decode_batch`: one K2 launch for the staged coded planes
+    (the preview too with ``previews``), the inverse spatial prediction
+    (K3 on CG2D frames and previews), the temporal add and the plane
+    combine, all queued and nothing waited for.  ``flags`` [B] int32 on
+    the device; ``hints``: :func:`_flag_hints`' keys.  -> (frames int32
+    [B, H, W] u16 values, previews u8 [B, H//4, W//4] or None when not
+    asked for or not staged, the coded planes' names, a bool tensor of
+    their integrity checks or None)."""
+    names = [n for n in staged.names if previews or n != "preview"]
+    outs, coded, ok = plane_codec.launch_plane_ranges(staged, names)
+    high = outs["high"].reshape(b, h, w)
+    low = (outs["low"].reshape(b, h, w) if "low" in outs
+           else torch.zeros_like(high))
+    high = _inverse_spatial(high, (flags >> F_SPATIAL_SHIFT) & 3,
+                            hints["any_up"], hints["any_cg"])
+    high, low = _apply_temporal(high, low, flags, delta_high, delta_low,
+                                hints["any_prev"])
+    pv = outs.get("preview") if previews else None
+    if pv is not None:
+        pv = _inverse_preview(pv.reshape(b, h // 4, w // 4), flags,
+                              delta_high, hints["pv_any_up"],
+                              hints["pv_any_cg"], hints["any_pv_delta"])
+    return combine_planes(high, low), pv, coded, ok
 
 
 def _to_u16(high: torch.Tensor, low: torch.Tensor) -> np.ndarray:
@@ -823,6 +946,401 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+# ---------------------------------------------------------------------------
+# the module-level device decode API (the JAX package's decode programs:
+# the same names, arguments and outputs, on torch tensors)
+
+
+def section_rows_need(pb: fpvt.ParsedBatch, chunk_len: int) -> int:
+    """Decode-window rows a parsed batch needs: the JAX package's
+    ``rows_alloc`` lower bound (shared by :func:`batch_decode_args` and
+    the sharded decode's grouping pass)."""
+    return max(
+        (plane_codec._quantize_rows(int(st.block_counts.max()), st.chunk_len)
+         for st in (pb.high, pb.low, pb.preview)
+         if st.coding != CODING_CONST and st.block_counts.size),
+        default=0,
+    ) + 16
+
+
+def _fused_decodable(pb: fpvt.ParsedBatch, chunk_len: int) -> bool:
+    """The JAX package's test for a section its sharded program decodes:
+    every plane stream present, and CONST, RAW or coded with 1024 lanes
+    (main planes at the header's chunk length, the preview at any
+    segment-compatible one).  Narrow streams go to the single-device
+    reader."""
+    for st, is_pv in ((pb.high, False), (pb.low, False), (pb.preview, True)):
+        if st is None:
+            return False
+        if st.coding in (CODING_CONST, CODING_RAW):
+            continue
+        if st.lanes != BLOCK_LANES:
+            return False
+        if is_pv:
+            if st.chunk_len > SEG_LEN and st.chunk_len % SEG_LEN:
+                return False
+        elif st.chunk_len != chunk_len:
+            return False
+    return True
+
+
+def batch_decode_args(
+    pb: fpvt.ParsedBatch, chunk_len: int, *, rows_alloc: int | None = None
+) -> tuple[dict, dict]:
+    """:func:`fused_decode_batch`'s inputs from a parsed batch ->
+    ``(arrays, static)``, equal to the JAX package's.
+
+    ``arrays``: numpy payload (every non-CONST plane's words, concatenated,
+    then zero slack), plane_offs, counts and states (of the coded planes),
+    flags, sym_tabs [3, 32, 128] (fused decode tables), fcs (unread) and
+    const_vals.  ``static``: rows_alloc, pv_chunk_len, low_ctx,
+    const_planes, raw_planes and the ``any_*`` hints.  ``rows_alloc``
+    overrides the window allocation (ValueError below this section's need)
+    so stacked sections share one shape, as the sharded decode stacks
+    them.  The arrays describe 1024-lane streams only: a section with a
+    missing or narrow stream raises ValueError (decode it with
+    :class:`FpvtReader`)."""
+    streams = [pb.high, pb.low, pb.preview]
+    _check_batch_size(pb)
+    if not _fused_decodable(pb, chunk_len):
+        raise ValueError("batch_decode_args takes sections of 1024-lane, "
+                         "CONST or RAW streams at the file's chunk length")
+    const_planes = tuple(st.coding == CODING_CONST for st in streams)
+    raw_planes = tuple(st.coding == CODING_RAW for st in streams)
+    const_vals = np.array(
+        [st.value if c else 0 for st, c in zip(streams, const_planes)],
+        np.uint32)
+    coded = [st for st, c, r in zip(streams, const_planes, raw_planes)
+             if not (c or r)]
+    need_rows = section_rows_need(pb, chunk_len)
+    if rows_alloc is None:
+        rows_alloc = need_rows
+    elif rows_alloc < need_rows:
+        raise ValueError("rows_alloc override below this section's need")
+    win = rows_alloc * BLOCK_COLS
+    plane_offs = np.zeros(3, np.int32)
+    parts, pos = [], 0
+    for i, st in enumerate(streams):
+        plane_offs[i] = pos
+        if not const_planes[i]:
+            parts.append(st.payload)
+            pos += st.payload.size
+    cap = plane_codec._quantize_cap(
+        pos + win, chunk_len, max(sum(s.num_blocks for s in coded), 1))
+    payload = np.zeros(cap + win, np.uint16)
+    payload[:pos] = np.concatenate(parts) if parts else payload[:0]
+    counts = np.concatenate([s.block_counts for s in coded]
+                            or [np.zeros(0, np.uint32)]).astype(np.uint32)
+    states = np.concatenate([s.states for s in coded]
+                            or [np.zeros(0, np.uint32)]).astype(np.uint32)
+    fcs = np.zeros((3, 4, BLOCK_COLS), np.uint32)
+    sym_tabs = np.zeros((3, 32, BLOCK_COLS), np.uint32)
+    for i, st in enumerate(streams):
+        if not (const_planes[i] or raw_planes[i]):
+            tab = (rans_cuda.ctx_fused_table_arrays(st.freq)
+                   if st.coding == CODING_CTX16
+                   else rans_cuda.fused_table_arrays(st.freq))
+            sym_tabs[i] = tab.reshape(32, BLOCK_COLS)
+    arrays = dict(payload=payload, plane_offs=plane_offs, counts=counts,
+                  states=states, flags=pb.frame_flags.astype(np.uint32),
+                  sym_tabs=sym_tabs, fcs=fcs, const_vals=const_vals)
+    static = dict(rows_alloc=rows_alloc,
+                  pv_chunk_len=int(pb.preview.chunk_len),
+                  low_ctx=bool(pb.low.coding == CODING_CTX16),
+                  const_planes=const_planes, raw_planes=raw_planes,
+                  **_flag_hints(pb.frame_flags))
+    return arrays, static
+
+
+def _arg_device(args, device) -> torch.device:
+    """``device`` if given, else the first tensor argument's device, else
+    the card (:func:`resolve_device`)."""
+    if device is None:
+        device = next((a.device for a in args if isinstance(a, torch.Tensor)),
+                      "cuda")
+    return resolve_device(device)
+
+
+def _on(a, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``a`` (numpy or a tensor) on ``dev`` as ``dtype``: reinterpreted bit
+    for bit where the item sizes agree (u32 -> int32, u16 -> int16), else
+    converted.  Numpy goes up through pinned memory; nothing waits."""
+    if not isinstance(a, torch.Tensor):
+        a = np.ascontiguousarray(a)
+        if not a.flags.writeable:  # torch wants a writable array to share
+            a = a.copy()
+        size = torch.empty(0, dtype=dtype).element_size()
+        a = torch.from_numpy(a.view(f"<i{size}") if a.dtype.itemsize == size
+                             and a.dtype.kind in "iu" else a)
+        if dev.type == "cuda":
+            a = a.pin_memory()
+    a = a.to(dev, non_blocking=True)
+    if a.dtype == dtype:
+        return a
+    if a.element_size() == torch.empty(0, dtype=dtype).element_size():
+        return a.view(dtype)
+    return a.to(dtype)
+
+
+def _decode_plane(counts: torch.Tensor, base, states: torch.Tensor,
+                  lens: torch.Tensor, chunk_len: int, table: torch.Tensor,
+                  payload: torch.Tensor, ctx: bool) -> rans_cuda.DecodePlane:
+    """K2's inputs for one 1024-lane plane (``lens`` [nblocks, 1024])
+    whose groups' words start at ``base`` (an int or a device scalar) in
+    the staged ``payload``."""
+    c64 = counts.to(torch.int64)
+    return rans_cuda.DecodePlane(
+        counts, base + torch.cumsum(c64, 0) - c64,
+        states.view(-1, BLOCK_LANES), lens, table.reshape(-1), payload,
+        chunk_len, CTX_PROB_BITS if ctx else PROB_BITS, ctx)
+
+
+_LENS: dict = {}
+
+
+def _lens(b: int, s: int, chunk_len: int, dev: torch.device) -> torch.Tensor:
+    """Lane lengths of a 1024-lane plane batch on ``dev``, made once per
+    geometry (the decode calls then upload nothing for them)."""
+    key = (b, s, chunk_len, dev)
+    if key not in _LENS:
+        _LENS[key] = lens_tensor(b, s, chunk_len, dev)
+    return _LENS[key]
+
+
+def fused_decode_batch(
+    payload, plane_offs, counts, states, flags, sym_tabs, fcs, delta_high,
+    delta_low, const_vals, *, chunk_len: int, b: int, h: int, w: int,
+    any_up: bool, any_cg: bool, pv_any_up: bool, pv_any_cg: bool,
+    decode_preview: bool = False, rows_alloc: int | None = None,
+    low_ctx: bool = False, const_planes: tuple = (False, False, False),
+    any_pv_delta: bool = False, pack_u8: bool = False,
+    any_prev: bool = False, raw_planes: tuple = (False, False, False),
+    pv_chunk_len: int | None = None, device=None,
+):
+    """Whole-batch FPVT decode on the device from
+    :func:`batch_decode_args`' arrays -> ``(imgs, ok)``, or ``(imgs, ok,
+    pv)`` with ``decode_preview``.
+
+    ``imgs``: int32 [B, H, W] holding the u16 values (the reader's
+    ``device_frames``), or with ``pack_u8`` their little-endian byte
+    stream u8 [B*H, 2W] (the JAX package's layout; view as ``<u2`` on the
+    host).  ``ok``: a 0-d bool tensor of every rANS integrity check,
+    left on the device.  ``pv``: u8 [B, H//4, W//4].
+
+    Inputs are numpy arrays (uploaded to ``device``, default the card) or
+    tensors (kept on their device).  One K2 launch decodes every coded
+    plane (the preview too with ``decode_preview``) through the reader's
+    own path (:func:`_decode_staged`); CONST planes fill from
+    ``const_vals`` and RAW planes unpack from ``payload`` at
+    ``plane_offs``; then the inverse predictions (K3 on CG2D frames and
+    previews), the temporal add and the plane combine.  Nothing waits for
+    the device.  The ``any_*`` hints select the inverse steps as in the
+    JAX program (a step a hint leaves out is not run); ``rows_alloc`` and
+    ``fcs`` exist for the JAX program's shapes and are not read."""
+    dev = _arg_device((payload, flags, delta_high), device)
+    pay = rans_cuda.staged_payload(_on(payload, dev, torch.int16).reshape(-1))
+    offs = _on(plane_offs, dev, torch.int32).to(torch.int64)
+    counts = _on(counts, dev, torch.int32)
+    states = _on(states, dev, torch.int32)
+    tabs = _on(sym_tabs, dev, torch.int32)
+    cvals = _on(const_vals, dev, torch.int32)
+    pv_k = pv_chunk_len or chunk_len
+    geoms = [(h * w, chunk_len), (h * w, chunk_len),
+             ((h // 4) * (w // 4), pv_k)]
+    names = ["high", "low", "preview"][: 3 if decode_preview else 2]
+    direct, jobs, coded, where = [], [], [], []
+    coff = soff = 0
+    for pi, name in enumerate(names):
+        s, k_p = geoms[pi]
+        n = b * s
+        if const_planes[pi]:
+            direct.append(cvals[pi].to(torch.uint8).expand(n))
+            continue
+        if raw_planes[pi]:
+            n2 = -(-n // 2)
+            start = offs[pi].clamp(0, max(pay.numel() - n2, 0))
+            words = pay[start + torch.arange(n2, device=dev)].to(torch.int32)
+            byts = torch.stack([words & 0xFF, (words >> 8) & 0xFF], dim=-1)
+            direct.append(byts.reshape(-1)[:n].to(torch.uint8))
+            continue
+        nb = num_blocks(b, s, k_p, BLOCK_LANES)
+        ngroups = nb * num_segments(k_p)
+        jobs.append(_decode_plane(
+            counts[coff : coff + ngroups], offs[pi],
+            states[soff : soff + nb * BLOCK_LANES], _lens(b, s, k_p, dev),
+            k_p, tabs[pi], pay, low_ctx and pi == 1))
+        coff += ngroups
+        soff += nb * BLOCK_LANES
+        direct.append(None)
+        coded.append(name)
+        where.append((pi, 0, n))
+    staged = plane_codec.StagedRanges(
+        names, direct,
+        plane_codec.StagedBlocks(coded, jobs) if jobs else None, where)
+    hints = dict(any_up=any_up, any_cg=any_cg, pv_any_up=pv_any_up,
+                 pv_any_cg=pv_any_cg, any_pv_delta=any_pv_delta,
+                 any_prev=any_prev)
+    dh = _on(delta_high, dev, torch.uint8)
+    imgs, pv, _coded, ok = _decode_staged(
+        staged, _on(flags, dev, torch.int32), b, h, w, dh,
+        _on(delta_low, dev, torch.uint8), decode_preview, hints)
+    ok = ok.all() if ok is not None else torch.ones((), dtype=torch.bool,
+                                                    device=dev)
+    if pack_u8:
+        imgs = torch.stack([imgs & 0xFF, imgs >> 8], dim=-1).to(
+            torch.uint8).reshape(b * h, 2 * w)
+    if not decode_preview:
+        return imgs, ok
+    if pv is None:  # frames under 4 x 4 have empty previews
+        pv = torch.zeros((b, h // 4, w // 4), dtype=torch.uint8, device=dev)
+    return imgs, ok, pv
+
+
+def fused_decode_frame(
+    pay_h, cnt_h, st_h, lens_h, off_h, pay_l, cnt_l, st_l, lens_l, off_l,
+    sym_h, fc_h, sym_l, fc_l, delta_high, delta_low, *, chunk_len: int,
+    h: int, w: int, nbh: int, nbl: int, spatial: int, use_delta: bool,
+    no_low: bool, low_ctx: bool, rows_h: int, rows_l: int, device=None,
+):
+    """ONE frame from only its covering rANS blocks -> ``(img, ok)``: int32
+    [H, W] u16 values and a 0-d bool tensor, on the device.
+
+    The arguments are the JAX package's (what its reader builds for a
+    frame): per plane the covering blocks' payload words, (block, segment)
+    counts, states, lane lengths [nb, 8, 128] and the frame's first symbol
+    within them, then the fused tables.  One K2 launch decodes both planes
+    (the high plane alone with ``no_low``), K3 runs on a CG2D frame;
+    ``use_delta`` adds ``delta_high``/``delta_low`` (the previous frame's
+    planes for F_USE_PREV).  ``fc_*`` and ``rows_*`` are not read."""
+    dev = _arg_device((pay_h, cnt_h, delta_high), device)
+    s = h * w
+    planes = [(pay_h, cnt_h, st_h, lens_h, sym_h, False)]
+    if not no_low:
+        planes.append((pay_l, cnt_l, st_l, lens_l, sym_l, low_ctx))
+    jobs = [_decode_plane(
+        _on(cnt, dev, torch.int32), 0, _on(st, dev, torch.int32),
+        _on(lens, dev, torch.int32).reshape(-1, BLOCK_LANES), chunk_len,
+        _on(sym, dev, torch.int32),
+        rans_cuda.staged_payload(_on(pay, dev, torch.int16).reshape(-1)), ctx)
+        for pay, cnt, st, lens, sym, ctx in planes]
+    syms, ok = plane_codec.launch_blocks(
+        plane_codec.StagedBlocks(["high", "low"][: len(jobs)], jobs))
+
+    def cut(flat, off):
+        if isinstance(off, torch.Tensor):
+            off = off.to(dev, torch.int64) + torch.arange(s, device=dev)
+            return flat[off].reshape(1, h, w)
+        return flat[int(off) : int(off) + s].reshape(1, h, w)
+
+    high = _inverse_spatial(cut(syms[0], off_h), np.array([spatial]))
+    low = (torch.zeros_like(high) if no_low else cut(syms[1], off_l))
+    if use_delta:
+        high = high + _on(delta_high, dev, torch.uint8)[None]
+        if not no_low:
+            low = low + _on(delta_low, dev, torch.uint8)[None]
+    return combine_planes(high, low)[0], ok.all()
+
+
+def fused_decode_preview(
+    payload, counts, states, flags, sym_tab, fc, delta_high, *,
+    chunk_len: int, b: int, ph: int, pw: int, pv_any_up: bool,
+    pv_any_cg: bool, rows_alloc: int, any_pv_delta: bool = False,
+    device=None,
+):
+    """A batch's previews alone -> ``(pv, ok)``: u8 [B, ph, pw] and a 0-d
+    bool tensor, on the device, from the JAX reader's arguments (the
+    preview stream's payload, counts, states, the frame flags and its
+    fused table).  One K2 launch, then the inverse spatial prediction (K3
+    on CG2D previews) and the delta frame's preview where F_PV_USE_DELTA
+    says.  ``fc`` and ``rows_alloc`` are not read."""
+    dev = _arg_device((payload, counts, delta_high), device)
+    s = ph * pw
+    job = _decode_plane(
+        _on(counts, dev, torch.int32), 0, _on(states, dev, torch.int32),
+        _lens(b, s, chunk_len, dev), chunk_len, _on(sym_tab, dev, torch.int32),
+        rans_cuda.staged_payload(_on(payload, dev, torch.int16).reshape(-1)),
+        False)
+    syms, ok = plane_codec.launch_blocks(
+        plane_codec.StagedBlocks(["preview"], [job]))
+    pv = _inverse_preview(syms[0][: b * s].reshape(b, ph, pw),
+                          _on(flags, dev, torch.int32),
+                          _on(delta_high, dev, torch.uint8), pv_any_up,
+                          pv_any_cg, any_pv_delta)
+    return pv, ok.all()
+
+
+def _frame_decode_args(pb: fpvt.ParsedBatch, j: int, h: int, w: int,
+                       chunk_len: int) -> tuple[tuple, dict]:
+    """:func:`fused_decode_frame`'s arguments for frame ``j`` of a parsed
+    batch of 1024-lane coded planes, as the JAX package's reader builds
+    them (``_decode_frame_blocks``) -> (the fourteen arrays before the
+    delta planes, the keyword arguments).  The caller passes the delta
+    planes: the file's, or the previous frame's planes for F_USE_PREV."""
+    if not all(st.coding in (CODING_ORDER0, CODING_CTX16)
+               and st.lanes == BLOCK_LANES and st.chunk_len == chunk_len
+               for st in (pb.high, pb.low)):
+        raise ValueError("fused_decode_frame takes coded 1024-lane high and "
+                         "low planes at the file's chunk length")
+    s, k = h * w, chunk_len
+    span, nseg = k * BLOCK_LANES, num_segments(k)
+    lens_all = chunk_lens(len(pb.frame_flags), s, k).reshape(-1, BLOCK_LANES)
+
+    def prep(st):
+        counts = st.block_counts.astype(np.int64)
+        cum = np.concatenate([[0], np.cumsum(counts)])
+        b0, b1 = (j * s) // span, ((j + 1) * s - 1) // span
+        nb = b1 - b0 + 1
+        cnt = counts[b0 * nseg : (b1 + 1) * nseg].astype(np.int32)
+        rows = plane_codec._quantize_rows(int(cnt.max()), k) + 16
+        total = int(cnt.sum())
+        pay = np.zeros(plane_codec._quantize_cap(total, k, nb)
+                       + rows * BLOCK_COLS, np.uint16)
+        pay[:total] = st.payload[cum[b0 * nseg] : cum[(b1 + 1) * nseg]]
+        tab = (rans_cuda.ctx_fused_table_arrays(st.freq)
+               if st.coding == CODING_CTX16
+               else rans_cuda.fused_table_arrays(st.freq))
+        return ((pay, cnt, st.states[b0 * BLOCK_LANES : (b1 + 1) * BLOCK_LANES]
+                 .astype(np.uint32), lens_all[b0 : b1 + 1].reshape(nb, 8, -1),
+                 np.int32(j * s - b0 * span)),
+                (tab.reshape(32, BLOCK_COLS),
+                 np.zeros((2, BLOCK_COLS), np.uint32)), nb, rows)
+
+    (ah, th, nbh, rows_h), (al, tl, nbl, rows_l) = prep(pb.high), prep(pb.low)
+    flags = int(pb.frame_flags[j])
+    return (*ah, *al, *th, *tl), dict(
+        chunk_len=k, h=h, w=w, nbh=nbh, nbl=nbl,
+        spatial=(flags >> F_SPATIAL_SHIFT) & 3,
+        use_delta=bool(flags & (F_USE_DELTA | F_USE_PREV)), no_low=False,
+        low_ctx=pb.low.coding == CODING_CTX16, rows_h=rows_h, rows_l=rows_l)
+
+
+def _preview_decode_args(pb: fpvt.ParsedBatch, h: int, w: int
+                         ) -> tuple[tuple, dict]:
+    """:func:`fused_decode_preview`'s arguments for a parsed batch's coded
+    1024-lane preview stream, as the JAX package's reader builds them ->
+    (the six arrays before the delta high plane, the keyword
+    arguments)."""
+    st, flags = pb.preview, pb.frame_flags
+    if st is None or st.coding != CODING_ORDER0 or st.lanes != BLOCK_LANES:
+        raise ValueError("fused_decode_preview takes a coded 1024-lane "
+                         "preview stream")
+    k = st.chunk_len
+    counts = st.block_counts.astype(np.int32)
+    rows = plane_codec._quantize_rows(int(counts.max()), k) + 16
+    payload = np.zeros(plane_codec._quantize_cap(int(counts.sum()), k,
+                                                 st.num_blocks)
+                       + rows * BLOCK_COLS, np.uint16)
+    payload[: st.payload.size] = st.payload
+    hints = _flag_hints(flags)
+    return (payload, counts, st.states.astype(np.uint32),
+            flags.astype(np.uint32),
+            rans_cuda.fused_table_arrays(st.freq).reshape(32, BLOCK_COLS),
+            np.zeros((2, BLOCK_COLS), np.uint32)), dict(
+        chunk_len=k, b=len(flags), ph=h // 4, pw=w // 4,
+        pv_any_up=hints["pv_any_up"], pv_any_cg=hints["pv_any_cg"],
+        rows_alloc=rows, any_pv_delta=hints["any_pv_delta"])
+
+
 def _section_key(section, header: Header) -> tuple:
     """Upload-cache key of a batch section's bytes in a file of this
     geometry."""
@@ -835,8 +1353,8 @@ class _StagedBatch:
     """A batch section's decode inputs on its device, as the upload cache
     keeps them: the staged plane streams (high, low and preview, as the
     section has them), the host frame flags and timestamps, the frame
-    count, and an event marking the end of the uploads (None on the
-    CPU)."""
+    count, an event marking the end of the uploads (None on the CPU) and
+    the flags on the device."""
 
     planes: plane_codec.StagedRanges
     flags: np.ndarray
@@ -844,6 +1362,7 @@ class _StagedBatch:
     b: int
     device: torch.device
     ready: object
+    dev_flags: torch.Tensor
 
 
 class FpvtReader:
@@ -1035,42 +1554,36 @@ class FpvtReader:
                     if st is not None]
         with self._on_stream():
             planes = plane_codec.stage_plane_ranges(requests, self._device)
+            dev_flags = upload(pb.frame_flags.astype(np.int32), self._device)
             ready = None
             if self._stream is not None:
                 ready = torch.cuda.Event()
                 ready.record(self._stream)
         return _StagedBatch(planes, pb.frame_flags, pb.timestamps, b,
-                            self._device, ready)
+                            self._device, ready, dev_flags)
 
     def _dispatch(self, st: _StagedBatch, want_previews: bool,
                   device_frames: bool):
         """Queue a staged batch's decode (see
         :meth:`_decode_parsed_batch_issue`) -> finalize."""
         h, w = self.header.ysize, self.header.xsize
-        b, flags = st.b, st.flags
         with self._on_stream():
             if st.ready is not None:
                 # the inputs may have been staged on another reader's stream
                 self._stream.wait_event(st.ready)
-            names = [n for n in st.planes.names
-                     if want_previews or n != "preview"]
-            outs, coded, ok = plane_codec.launch_plane_ranges(st.planes,
-                                                              names)
-            high = outs["high"].reshape(b, h, w)
-            low = (outs["low"].reshape(b, h, w) if "low" in outs
-                   else torch.zeros_like(high))
-            high = _inverse_spatial(high, (flags >> F_SPATIAL_SHIFT) & 3)
-            high, low = _apply_temporal(
-                high, low, flags, self._delta_high, self._delta_low
-            )
-            pv = None
+            frames, pv, coded, ok = _decode_staged(
+                st.planes, st.dev_flags, st.b, h, w, self._delta_high,
+                self._delta_low, want_previews, _flag_hints(st.flags))
             if want_previews:
-                pv = self._previews(outs.get("preview"), flags, b)
-                if device_frames and "preview" in outs and (
-                        pv.data_ptr() == outs["preview"].data_ptr()):
+                if pv is None:
+                    pv = self._previews(None, st.flags, st.b)
+                direct = dict(zip(st.planes.names, st.planes.direct))
+                kept = direct.get("preview")
+                if device_frames and kept is not None and (
+                        pv.data_ptr() == kept.data_ptr()):
                     pv = pv.clone()  # never hand out the cache's own bytes
-            return self._finish(combine_planes(high, low), pv, coded, ok,
-                                device_frames, keep=st)
+            return self._finish(frames, pv, coded, ok, device_frames,
+                                keep=st)
 
     def _finish(self, frames, pv, coded, ok, device_frames: bool,
                 keep=None):
@@ -1235,8 +1748,12 @@ class FpvtReader:
                 return torch.zeros((b, ph, pw), dtype=torch.uint8,
                                    device=self._device)
             raise ValueError("batch has no preview stream")
-        return _inverse_preview(res.reshape(b, ph, pw), flags,
-                                self._delta_high)
+        hints = _flag_hints(flags)
+        return _inverse_preview(
+            res.reshape(b, ph, pw), upload(flags.astype(np.int32),
+                                           self._device),
+            self._delta_high, hints["pv_any_up"], hints["pv_any_cg"],
+            hints["any_pv_delta"])
 
 
 class FpvtStreamingReader:

@@ -20,6 +20,7 @@ from fpv_tpu_torch.entropy.tables import normalize_freqs, normalize_freqs_ctx
 from fpv_tpu_torch.ops import rans_cuda
 from fpv_tpu_torch.ops.rans_cuda import PAYLOAD_ALIGN, PAYLOAD_PAD
 from fpv_tpu_torch.ops.rans_layout import (
+    BLOCK_COLS,
     BLOCK_LANES,
     CODING_CONST,
     CODING_CTX16,
@@ -30,6 +31,7 @@ from fpv_tpu_torch.ops.rans_layout import (
     CTX_PROB_BITS,
     LANES_MIN,
     PROB_BITS,
+    SEG_LEN,
     chunk_lens,
     num_blocks,
     num_segments,
@@ -196,6 +198,25 @@ def ctx_presence_device(sym4: torch.Tensor) -> torch.Tensor:
 def _hist_flat(x: torch.Tensor, nbins: int) -> torch.Tensor:
     """Exact int64 histogram of a flat int array with values in [0, nbins)."""
     return torch.bincount(x.reshape(-1).to(torch.int64), minlength=nbins)
+
+
+def _quantize_rows(max_count: int, chunk_len: int) -> int:
+    """The JAX package's decode-window rows for a (block, segment) group
+    count: rounded up to one of a few buckets, at most the segment's worst
+    case.  K2 stages words in its own ring and needs no window; the value
+    sizes the ``rows_alloc`` and payload slack of ``batch_decode_args``,
+    which must equal the JAX package's."""
+    worst = min(chunk_len, SEG_LEN) * BLOCK_LANES // BLOCK_COLS
+    step = max(worst // 8, 16)
+    rows = -(-max_count // BLOCK_COLS)
+    return min(-(-rows // step) * step, worst)
+
+
+def _quantize_cap(total_words: int, chunk_len: int, nblocks: int) -> int:
+    """The JAX package's payload capacity bucket (a multiple of worst/32)."""
+    worst = chunk_len * BLOCK_LANES * nblocks
+    step = max(worst // 32, 4096)
+    return max(step, -(-total_words // step) * step)
 
 
 def lens_tensor(

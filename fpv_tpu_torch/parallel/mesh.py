@@ -32,16 +32,23 @@ from fpv_tpu_torch.api.fpvt_codec import (
     FpvtReader,
     FpvtWriter,
     _apply_temporal,
+    _fused_decodable,
     _frame_rows,
     _inverse_spatial,
+    _mags,
     _mask_of_ranges,
     _pack_flags,
+    _run_sums,
+    _tree_f32,
     _value_ranges,
     _where3,
     encode_model_step,
+    batch_decode_args,
     file_encode_setup,
+    fused_decode_batch,
     fused_encode_batch,
     put_frames,
+    section_rows_need,
 )
 from fpv_tpu_torch.entropy.plane_codec import (
     _hist_flat,
@@ -61,12 +68,10 @@ from fpv_tpu_torch.ops.planes import combine_planes, split_planes, to_int16
 from fpv_tpu_torch.ops.predict import clamped_gradient, cg2d_encode, up_encode
 from fpv_tpu_torch.ops.preview import generate_preview
 from fpv_tpu_torch.ops.rans_layout import (
-    BLOCK_LANES,
     CODING_CONST,
     CODING_CTX16,
     CODING_ORDER0,
     CODING_RAW,
-    SEG_LEN,
 )
 from fpv_tpu_torch.utils.profiling import annotate
 
@@ -217,11 +222,19 @@ def _rotating_rows(g: torch.Tensor, rows: int) -> torch.Tensor:
     return offs[:, None] + _STRIDE * torch.arange(nr, device=g.device)[None]
 
 
-def _mag_sum(rows: torch.Tensor) -> torch.Tensor:
-    """[B, R, W] u8 residual rows -> [B, R] int64 sums of their wraparound
-    magnitudes (``fpvt_codec._cost`` row by row)."""
-    xi = rows.to(torch.int32)
-    return torch.minimum(xi, 256 - xi).sum(dim=2, dtype=torch.int64)
+def _kept_runs(rows: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """[B, R, W] u8 residual rows, [B, R] bool -> [B, count] int64 exact
+    run sums (``fpvt_codec._run_sums``) of the kept rows' magnitudes (the
+    others count 0).  The run sums of a data row's space shards add up to
+    the whole sample's, so the float32 cost built from them equals the
+    single-device step's."""
+    return _run_sums(_mags(rows * keep[:, :, None]))
+
+
+def _costs(runs: torch.Tensor, widths: list[int]) -> list[torch.Tensor]:
+    """Concatenated run sums -> one float32 [B] cost per ``widths`` part,
+    in ``fpvt_codec._cost``'s order."""
+    return [_tree_f32(r) for r in runs.split(widths, dim=1)]
 
 
 def _local_rows(x: torch.Tensor, y0: int, idx: torch.Tensor) -> torch.Tensor:
@@ -230,10 +243,10 @@ def _local_rows(x: torch.Tensor, y0: int, idx: torch.Tensor) -> torch.Tensor:
     return _frame_rows(x, (idx - y0).clamp(0, x.shape[1] - 1))
 
 
-def _owned_cost(x, y0: int, idx, lo: int, hi: int) -> torch.Tensor:
-    """[B] int64: the cost of rows ``idx`` of ``x`` that lie in [lo, hi)."""
-    keep = (idx >= lo) & (idx < hi)
-    return (_mag_sum(_local_rows(x, y0, idx)) * keep).sum(dim=1)
+def _owned_runs(x, y0: int, idx, lo: int, hi: int) -> torch.Tensor:
+    """[B, count] int64 run sums of rows ``idx`` of ``x`` that lie in
+    [lo, hi)."""
+    return _kept_runs(_local_rows(x, y0, idx), (idx >= lo) & (idx < hi))
 
 
 def _gather_rows(row: list, hl: int, lo: int, hi: int, device) -> torch.Tensor:
@@ -308,21 +321,23 @@ def _model_step(mesh, grid, delta_high, delta_low, shift, big_endian):
             pv_e = generate_preview(high_e[:, pvs])
             pvd_e = pv_e - generate_preview(dh_e[None, pvs])
             pidx = _rotating_rows(g, ph)
-            costs = [_owned_cost(high_e, gm.lo, ridx, gm.r0, gm.r1),
-                     _owned_cost(dhe, gm.lo, ridx, gm.r0, gm.r1)]
+            costs = [_owned_runs(high_e, gm.lo, ridx, gm.r0, gm.r1),
+                     _owned_runs(dhe, gm.lo, ridx, gm.r0, gm.r1)]
             if has_pv:
-                costs += [_owned_cost(x, gm.pa, pidx, gm.p0, gm.p1)
+                costs += [_owned_runs(x, gm.pa, pidx, gm.p0, gm.p1)
                           for x in (pv_e, pvd_e)]
             else:
-                costs += [torch.zeros_like(costs[0])] * 2
+                costs += [torch.zeros_like(costs[0][:, :1])] * 2
             low = low_e[:, own]
-            costs.append((low != 0).flatten(1).any(dim=1).to(torch.int64))
+            costs.append((low != 0).flatten(1).any(dim=1, keepdim=True)
+                         .to(torch.int64))
+            widths_a = [c.shape[1] for c in costs]
             s.update(high_e=high_e, dhe=dhe, low=low, pv_e=pv_e, pvd_e=pvd_e,
                      pidx=pidx, g=g, dl=upload(dl_host[gm.r0 : gm.r1], dev),
-                     part=torch.stack(costs))
-    tot = row_sums(host("part"))
-    use_delta = [t[1].float() < t[0].float() for t in tot]
-    pv_use_delta = [t[3].float() < t[2].float() for t in tot]
+                     part=torch.cat(costs, dim=1))
+    tot = [_costs(t, widths_a) for t in row_sums(host("part"))]
+    use_delta = [t[1] < t[0] for t in tot]
+    pv_use_delta = [t[3] < t[2] for t in tot]
     nonzero_low = [t[4] > 0 for t in tot]
 
     # phase B: temporal choice, spatial and preview-spatial costs
@@ -345,24 +360,22 @@ def _model_step(mesh, grid, delta_high, delta_low, shift, big_endian):
             cg_s = cur - clamped_gradient(north, torch.roll(cur, 1, dims=2),
                                           torch.roll(north, 1, dims=2))
             keep = (cidx >= gm.r0) & (cidx < gm.r1)
-            costs = [(_mag_sum(x) * keep).sum(dim=1)
-                     for x in (cur, cur - north, cg_s)]
+            costs = [_kept_runs(x, keep) for x in (cur, cur - north, cg_s)]
             pv2_e = _where3(upload(pv_use_delta[i].numpy(), dev),
                             s.pop("pvd_e"), s.pop("pv_e"))
             p_up = p_cg = pv2_e  # an empty preview has no predictor
             if has_pv:
                 p_up, p_cg = up_encode(pv2_e), cg2d_encode(pv2_e)
-                costs += [_owned_cost(x, gm.pa, s["pidx"], gm.p0, gm.p1)
+                costs += [_owned_runs(x, gm.pa, s["pidx"], gm.p0, gm.p1)
                           for x in (pv2_e, p_up, p_cg)]
             else:
-                costs += [torch.zeros_like(costs[0])] * 3
+                costs += [torch.zeros_like(costs[0][:, :1])] * 3
+            widths_b = [c.shape[1] for c in costs]
             s.update(high2_e=high2_e, pv2_e=pv2_e, p_up=p_up, p_cg=p_cg,
-                     part=torch.stack(costs))
-    tot = row_sums(host("part"))
-    spatial = [torch.argmin(t[:3].float(), dim=0).to(torch.int32)
-               for t in tot]
-    pv_spatial = [torch.argmin(t[3:].float(), dim=0).to(torch.int32)
-                  for t in tot]
+                     part=torch.cat(costs, dim=1))
+    tot = [torch.stack(_costs(t, widths_b)) for t in row_sums(host("part"))]
+    spatial = [torch.argmin(t[:3], dim=0).to(torch.int32) for t in tot]
+    pv_spatial = [torch.argmin(t[3:], dim=0).to(torch.int32) for t in tot]
 
     # phase C: residual planes, histograms, value ranges
     def choose(sel, up, cg, plain):
@@ -596,8 +609,10 @@ def _shard_roundtrip(s: dict, tables, b: int, h: int, w: int, k: int,
     flags = _pack_flags(m)
     high = _inverse_spatial(rec["high"].reshape(b, h, w),
                             (flags >> fpvt.F_SPATIAL_SHIFT) & 3)
-    high, low = _apply_temporal(high, rec["low"].reshape(b, h, w), flags,
-                                s["dh"], s["dl"])
+    high, low = _apply_temporal(high, rec["low"].reshape(b, h, w),
+                                upload(flags.astype(np.int32), dev),
+                                s["dh"], s["dl"],
+                                bool((flags & fpvt.F_USE_PREV).any()))
     out = combine_planes(high, low)
     if "preview" in rec:
         oks.append(torch.equal(rec["preview"], m["preview"].reshape(-1)))
@@ -707,25 +722,93 @@ def sharded_encode_file(
     return b"".join(parts)
 
 
-def _fused_decodable(pb: fpvt.ParsedBatch, chunk_len: int) -> bool:
-    """The JAX package's test for a section its sharded program decodes:
-    every plane stream present, and CONST, RAW or coded with 1024 lanes
-    (main planes at the header's chunk length, the preview at any
-    segment-compatible one).  Narrow streams go to the single-device
-    reader."""
-    for st, is_pv in ((pb.high, False), (pb.low, False), (pb.preview, True)):
-        if st is None:
-            return False
-        if st.coding in (CODING_CONST, CODING_RAW):
-            continue
-        if st.lanes != BLOCK_LANES:
-            return False
-        if is_pv:
-            if st.chunk_len > SEG_LEN and st.chunk_len % SEG_LEN:
-                return False
-        elif st.chunk_len != chunk_len:
-            return False
-    return True
+_HINTS = ("any_up", "any_cg", "pv_any_up", "pv_any_cg", "any_pv_delta",
+          "any_prev")
+
+
+def stack_decode_args(pbs: list, chunk_len: int) -> tuple[dict, dict]:
+    """``batch_decode_args`` of parsed sections of one decode signature
+    (frames per batch, CONST and RAW planes, low coding), stacked as
+    :func:`sharded_fused_decode` takes them -> (arrays [D, ...], static):
+    payloads zero-padded to one length, ``rows_alloc`` the sections'
+    maximum, the ``any_*`` hints their union (the JAX package's sharded
+    decode stacks them so)."""
+    rows = max(section_rows_need(pb, chunk_len) for pb in pbs)
+    built = [batch_decode_args(pb, chunk_len, rows_alloc=rows) for pb in pbs]
+    plen = max(a["payload"].size for a, _s in built)
+    stack = {key: np.stack([np.pad(a[key], (0, plen - a[key].size))
+                            if key == "payload" else a[key]
+                            for a, _s in built]) for key in built[0][0]}
+    static = dict(built[0][1])
+    for _a, s in built[1:]:
+        if any(s[key] != static[key] for key in ("low_ctx", "const_planes",
+                                                 "raw_planes")):
+            raise ValueError("stacked sections differ in decode signature")
+        for key in _HINTS:
+            static[key] |= s[key]
+    return stack, static
+
+
+def sharded_fused_decode(
+    mesh: Mesh,
+    *,
+    chunk_len: int,
+    b: int,
+    h: int,
+    w: int,
+    decode_preview: bool = False,
+    **static,
+):
+    """One batch section per data shard -> ``decode(payload, plane_offs,
+    counts, states, flags, sym_tabs, fcs, delta_high, delta_low,
+    const_vals)``.
+
+    The callable takes ``batch_decode_args``' arrays stacked over the
+    sections (payload [D, L] zero-padded to one length, plane_offs [D, 3],
+    counts [D, C], states [D, S], flags [D, B], sym_tabs [D, 3, 32, 128],
+    fcs [D, 3, 4, 128], const_vals [D, 3]; numpy or tensors) and the
+    shared delta planes.  Section d decodes on shard d's device, on that
+    shard's stream, through ``fused_decode_batch(pack_u8=True)``: one K2
+    launch a shard.  Returns, on the mesh's first device, imgs [D, B*H, 2W]
+    u8 (each section's little-endian byte stream), ok [D] bool and, with
+    ``decode_preview``, previews [D, B, H//4, W//4] u8.  ``static``
+    carries ``batch_decode_args``' static kwargs: the ``any_*`` hints the
+    union over the sections, rows_alloc their maximum.  The mesh's space
+    axis must have size 1 and the mesh must lie in this process."""
+    if mesh.spans_processes:
+        raise ValueError("sharded_fused_decode runs in one process")
+    shards = _data_shards(mesh)
+    home = shards[0].device
+
+    def decode(payload, plane_offs, counts, states, flags, sym_tabs, fcs,
+               delta_high, delta_low, const_vals):
+        def one(d):
+            sh = shards[d]
+            with sh.on():
+                outs = fused_decode_batch(
+                    payload[d], plane_offs[d], counts[d], states[d],
+                    flags[d], sym_tabs[d], fcs[d], delta_high, delta_low,
+                    const_vals[d], chunk_len=chunk_len, b=b, h=h, w=w,
+                    decode_preview=decode_preview, pack_u8=True,
+                    device=sh.device, **static)
+                done = None
+                if sh.stream is not None:
+                    done = torch.cuda.Event()
+                    done.record(sh.stream)
+            return outs, done
+
+        results = _map(one, list(range(len(shards))))
+        cur = (torch.cuda.current_stream(home) if home.type == "cuda"
+               else None)
+        for outs, done in results:
+            if done is not None:
+                cur.wait_event(done)  # the shard's decode has been queued
+                for t in outs:
+                    t.record_stream(cur)
+        return tuple(torch.stack([outs[i].to(home) for outs, _d in results])
+                     for i in range(len(results[0][0])))
+
+    return decode
 
 
 def sharded_decode_file(data: bytes, mesh: Mesh, want_previews: bool = False):

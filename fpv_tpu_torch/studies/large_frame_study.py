@@ -10,16 +10,14 @@ what cost in file size?
   chunk length.
 * Device-resident encode: ``fused_encode_batch`` on frames already on the
   device (its tables, states, counts and payloads come to the host, as
-  the writer needs them).  Device-resident decode: the reader's staged
-  batch (inputs uploaded once) through the production decode
-  (``FpvtReader._dispatch``: one K2 launch, the inverse predictions, the
-  temporal add, frames left on the device), with previews and without,
-  so the preview pass is priced separately.  Each decode is checked
-  exact before it is timed.
-* Times: CUDA events around each call (on the reader's issue stream for
-  the decode), best of ``--reps``, the decodes round-robin across the
-  chunk lengths.  On the CPU (``--device cpu``) the host clock, and the
-  numbers are the CPU's.
+  the writer needs them).  Device-resident decode: ``batch_decode_args``'
+  arrays uploaded once, then ``fused_decode_batch`` (the reader's decode
+  path: one K2 launch, the inverse predictions, the temporal add, frames
+  left on the device), with previews and without, so the preview pass is
+  priced separately.  Each decode is checked exact before it is timed.
+* Times: CUDA events around each call, best of ``--reps``, the decodes
+  round-robin across the chunk lengths.  On the CPU (``--device cpu``)
+  the host clock, and the numbers are the CPU's.
 
 Geometry (B = 4, 4096^2, per plane): chunk 2^11 -> 32 blocks of 1024
 lanes, 2^12 -> 16, 2^13 -> 8.  ``--fast`` runs 2 frames of 256^2.
@@ -40,6 +38,8 @@ import torch
 from fpv_tpu_torch.api.fpvt_codec import (
     FpvtReader,
     FpvtWriter,
+    batch_decode_args,
+    fused_decode_batch,
     fused_encode_batch,
     put_frames,
     resolve_device,
@@ -48,6 +48,10 @@ from fpv_tpu_torch.utils import testdata
 from fpv_tpu_torch.utils.platform import argv_device
 
 SHIFT = 4
+# batch_decode_args' arrays in fused_decode_batch's argument order (the
+# delta planes go in after "fcs")
+DECODE_ARGS = ("payload", "plane_offs", "counts", "states", "flags",
+               "sym_tabs", "fcs", "const_vals")
 
 
 def _timed(fn, stream) -> float:
@@ -107,17 +111,23 @@ def run(size: int, frames: int, chunks: list[int], reps: int,
         del imgs_dev
 
         rdr = FpvtReader(data, device=dev)
-        staged = rdr._stage(rdr._parse_batch(rdr._batches[0][0]), b)
+        arrays, static = batch_decode_args(
+            rdr._parse_batch(rdr._batches[0][0]), 1 << cl)
+        args = [torch.from_numpy(arrays[n]).to(dev) for n in DECODE_ARGS]
+        args[7:7] = [rdr._delta_high, rdr._delta_low]
 
-        def _dec(pv, _r=rdr, _st=staged):
-            return _r._dispatch(_st, pv, device_frames=True)()
+        def _dec(pv, _args=args, _k=1 << cl, _static=static):
+            return fused_decode_batch(*_args, chunk_len=_k, b=b, h=h, w=w,
+                                      decode_preview=pv, **_static)
 
         for pv in (True, False):
-            imgs, _pv = _dec(pv)
+            imgs, ok = _dec(pv)[:2]
+            if not bool(ok):
+                raise AssertionError(f"chunk_log2={cl} integrity failed")
             if not torch.equal(imgs, want):
                 raise AssertionError(f"chunk_log2={cl} decode mismatch")
             del imgs
-        variants.append((cl, _dec, rdr._stream))
+        variants.append((cl, _dec, stream))
 
     # round-robin decode timing: previews on and off as separate passes
     for label, pv in (("dec", True), ("dec_nopv", False)):

@@ -841,3 +841,193 @@ def test_encode_chain_nsub_equals_k1a(cuda, ctx, nsub):
     for g, r, q in zip(got, ref, plain):
         torch.testing.assert_close(g, r, rtol=0, atol=0)
         torch.testing.assert_close(g.cpu(), q, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the module-level decode API (fused_decode_batch, fused_decode_frame,
+# fused_decode_preview, sharded_fused_decode) on the card against the CPU
+
+DECODE_ARGS = ("payload", "plane_offs", "counts", "states", "flags",
+               "sym_tabs", "fcs")
+API_FILES = {
+    "plasma-ctx16": (lambda: testdata.plasma_frames(7, 64, 128, bits=12),
+                     4, 3),
+    "plasma-order0": (lambda: testdata.plasma_frames(5, 256, 256, bits=16,
+                                                     seed=2), 0, 2),
+    "repeated-const": (lambda: np.repeat(testdata.plasma_frames(
+        1, 32, 64, bits=12, seed=3), 5, axis=0), 4, 2),
+    "noise-raw": (lambda: testdata.noise_frames(5, 32, 64), 0, 2),
+}
+
+
+def _api_file(name, dev, monkeypatch):
+    """A fused-geometry file of API_FILES[name] written on ``dev``, and
+    its frames << shift."""
+    from fpv_tpu_torch.entropy import plane_codec
+
+    monkeypatch.setattr(plane_codec, "NARROW_MAX_SYMS", 0)
+    make, shift, fpb = API_FILES[name]
+    frames = make()
+    data = fpv_tpu_torch.encode_file_fpvt(frames, shift=shift,
+                                          frames_per_batch=fpb, chunk_log2=8,
+                                          device=dev)
+    return data, frames.astype(np.uint16) << shift
+
+
+def _api_batch(r, arrays, static, n, **kw):
+    from fpv_tpu_torch.api.fpvt_codec import fused_decode_batch
+
+    return fused_decode_batch(
+        *[arrays[a] for a in DECODE_ARGS], r._delta_high, r._delta_low,
+        arrays["const_vals"], chunk_len=1 << r.header.chunk_log2, b=n,
+        h=r.header.ysize, w=r.header.xsize, **static, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(API_FILES))
+def test_fused_decode_batch_on_card(cuda, monkeypatch, name):
+    """``batch_decode_args`` + ``fused_decode_batch`` on the card equal the
+    CPU's outputs and the reader's frames and previews, numpy or staged
+    tensor inputs, previews and ``pack_u8`` on and off; each call launches
+    K2 once when it has a coded plane and K3 as its CG2D flags ask."""
+    from fpv_tpu_torch.api.fpvt_codec import batch_decode_args
+    from fpv_tpu_torch.utils import kernels
+
+    data, want = _api_file(name, cuda, monkeypatch)
+    r = fpv_tpu_torch.FpvtReader(data, device=cuda)
+    rc = fpv_tpu_torch.FpvtReader(data, device="cpu")
+    start = 1
+    for bi, (off, n) in enumerate(r._batches):
+        arrays, static = batch_decode_args(r._parse_batch(off),
+                                           1 << r.header.chunk_log2)
+        _f, want_pv = rc.decode_batch_with_previews(bi)
+        staged = {k: torch.from_numpy(v).to(cuda) for k, v in arrays.items()}
+        for pv in (False, True):
+            for pack in (False, True):
+                coded = [i for i in range(2 + pv)
+                         if not (static["const_planes"][i]
+                                 or static["raw_planes"][i])]
+                k3 = int(static["any_cg"]) + int(pv and static["pv_any_cg"])
+                cpu = _api_batch(rc, arrays, static, n, decode_preview=pv,
+                                 pack_u8=pack)
+                for inputs in (arrays, staged):
+                    kernels.reset_launches()
+                    got = _api_batch(r, inputs, static, n, decode_preview=pv,
+                                     pack_u8=pack)
+                    torch.cuda.synchronize()
+                    assert kernels.LAUNCHES["rans_decode"] == int(bool(coded))
+                    assert kernels.LAUNCHES["cg2d_decode"] == k3
+                    assert all(g.device.type == "cuda" for g in got)
+                    for g, c in zip(got, cpu):
+                        assert torch.equal(g.cpu(), c)
+                assert bool(got[1])
+                frames = got[0].cpu().numpy()
+                if pack:
+                    frames = frames.view("<u2").reshape(n, *want.shape[1:])
+                np.testing.assert_array_equal(frames, want[start : start + n])
+                if pv:
+                    np.testing.assert_array_equal(got[2].cpu().numpy(),
+                                                  want_pv)
+        start += n
+
+
+@pytest.mark.cuda
+def test_fused_decode_frame_and_preview_on_card(cuda, monkeypatch):
+    """``fused_decode_frame`` (walking prev chains with the previous
+    frame's planes, as the JAX reader does) and ``fused_decode_preview``
+    on the card equal ``decode_frame`` and ``decode_previews``, one K2
+    launch a call, K3 on CG2D frames and previews.  The file's second
+    batch stores its low plane RAW: its frames take no fused frame decode
+    (the JAX reader decodes that batch whole), and ``_frame_decode_args``
+    says so."""
+    from fpv_tpu_torch.api.fpvt_codec import (
+        _frame_decode_args,
+        _preview_decode_args,
+        fused_decode_frame,
+        fused_decode_preview,
+    )
+    from fpv_tpu_torch.format.fpvt import (
+        F_PV_SPATIAL_SHIFT,
+        F_SPATIAL_SHIFT,
+        F_USE_PREV,
+        SPATIAL_CG2D,
+    )
+    from fpv_tpu_torch.ops.rans_layout import CODING_RAW
+    from fpv_tpu_torch.utils import kernels
+
+    data, want = _api_file("plasma-order0", cuda, monkeypatch)
+    r = fpv_tpu_torch.FpvtReader(data, device=cuda)
+    h, w, k = r.header.ysize, r.header.xsize, 1 << r.header.chunk_log2
+    raw_low = r._parse_batch(r._batches[1][0])
+    assert raw_low.low.coding == CODING_RAW
+    with pytest.raises(ValueError, match="coded 1024-lane"):
+        _frame_decode_args(raw_low, 0, h, w, k)
+    for index in range(1, 1 + r._batches[0][1]):
+        bi, j = r._frame_to_batch[index]
+        pb = r._parse_batch(r._batches[bi][0])
+        j0 = j
+        while j0 > 0 and pb.frame_flags[j0] & F_USE_PREV:
+            j0 -= 1
+        dh, dl = r._delta_high, r._delta_low
+        for t in range(j0, j + 1):
+            args, kw = _frame_decode_args(pb, t, h, w, k)
+            kernels.reset_launches()
+            img, ok = fused_decode_frame(*args, dh, dl, **kw)
+            torch.cuda.synchronize()
+            assert bool(ok) and kernels.LAUNCHES["rans_decode"] == 1
+            assert kernels.LAUNCHES["cg2d_decode"] == int(
+                ((pb.frame_flags[t] >> F_SPATIAL_SHIFT) & 3) == SPATIAL_CG2D)
+            dh, dl = (img >> 8).to(torch.uint8), (img & 0xFF).to(torch.uint8)
+        np.testing.assert_array_equal(img.cpu().numpy(), want[index])
+        np.testing.assert_array_equal(img.cpu().numpy(), r.decode_frame(index))
+    for bi in range(r.num_batches):
+        pb = r._parse_batch(r._batches[bi][0])
+        args, kw = _preview_decode_args(pb, h, w)
+        kernels.reset_launches()
+        pv, ok = fused_decode_preview(*args, r._delta_high, **kw)
+        torch.cuda.synchronize()
+        assert bool(ok) and kernels.LAUNCHES["rans_decode"] == 1
+        assert kernels.LAUNCHES["cg2d_decode"] == int(bool(
+            (((pb.frame_flags >> F_PV_SPATIAL_SHIFT) & 3)
+             == SPATIAL_CG2D).any()))
+        np.testing.assert_array_equal(pv.cpu().numpy(), r.decode_previews(bi))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 2], ids=["d1", "d2-logical"])
+def test_sharded_fused_decode_on_card(cuda, monkeypatch, shards):
+    """``sharded_fused_decode`` over D shards of the card: equal to the
+    per-section ``fused_decode_batch(pack_u8=True)`` calls and to the CPU's
+    two-shard run, one K2 launch a shard."""
+    from fpv_tpu_torch.parallel import mesh as tmesh
+    from fpv_tpu_torch.utils import kernels
+
+    data, want = _api_file("plasma-ctx16", cuda, monkeypatch)
+    r = fpv_tpu_torch.FpvtReader(data, device=cuda)
+    rc = fpv_tpu_torch.FpvtReader(data, device="cpu")
+    h, w, k = r.header.ysize, r.header.xsize, 1 << r.header.chunk_log2
+    pbs = [r._parse_batch(off) for off, _n in r._batches[:shards]]
+    n = r._batches[0][1]
+    stack, static = tmesh.stack_decode_args(pbs, k)
+    outs = {}
+    for dev, rdr in ((cuda, r), (torch.device("cpu"), rc)):
+        mesh = tmesh.make_mesh(devices=[dev] * shards)
+        step = tmesh.sharded_fused_decode(mesh, chunk_len=k, b=n, h=h, w=w,
+                                          decode_preview=True, **static)
+        kernels.reset_launches()
+        outs[dev.type] = step(*[stack[a] for a in DECODE_ARGS],
+                              rdr._delta_high, rdr._delta_low,
+                              stack["const_vals"])
+        torch.cuda.synchronize()
+        if dev.type == "cuda":
+            assert kernels.LAUNCHES["rans_decode"] == shards
+    for g, c in zip(outs["cuda"], outs["cpu"]):
+        assert torch.equal(g.cpu(), c)
+    for i in range(shards):
+        one = _api_batch(r, {key: v[i] for key, v in stack.items()}, static,
+                         n, decode_preview=True, pack_u8=True)
+        for g, o in zip(outs["cuda"], one):
+            assert torch.equal(g[i], o)
+        frames = outs["cuda"][0][i].cpu().numpy().view("<u2").reshape(n, h, w)
+        np.testing.assert_array_equal(frames,
+                                      want[1 + i * n : 1 + (i + 1) * n])

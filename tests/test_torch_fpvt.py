@@ -190,6 +190,10 @@ def test_import_leaves_out_jax_and_fpv_tpu():
         "import fpv_tpu_torch.studies.class_tables_study\n"
         "import fpv_tpu_torch.studies.ctx_study\n"
         "import fpv_tpu_torch.studies.large_frame_study\n"
+        "import fpv_tpu_torch.examples.fpv1_compat\n"
+        "import fpv_tpu_torch.examples.fpvt_pipeline\n"
+        "import fpv_tpu_torch.examples.multichip\n"
+        "import fpv_tpu_torch.examples.serving_hubs\n"
         "import importlib.util\n"
         "if importlib.util.find_spec('pyarrow'):\n"
         "    import fpv_tpu_torch.batch.arrow\n"
