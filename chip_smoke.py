@@ -1390,11 +1390,12 @@ def check_filter_chain(frames: np.ndarray, dev) -> dict:
 def check_cg_flat(frames: np.ndarray, dev) -> list[dict]:
     """K4 against its plain version at the shapes the main path launches
     it: the delta frame's residual [1, H, W] and the CG frames' [k, H, W]
-    of the first 64 corpus frames (one plain run over all of them: its
-    chain is H*W steps whatever the batch), and 4 x 256^2.  Exact, and
-    equal to the planes before the CG residual.  Bound: 1 byte in and 1
-    out per pixel at 3.35 TB/s; its chain, H*W dependent steps per frame
-    (``ns_per_step``)."""
+    of the first 64 corpus frames (one plain run over all of them: it
+    steps once per segment and row whatever the batch), and 4 x 256^2.
+    Exact, and equal to the planes before the CG residual.  Bound: 1 byte
+    in and 1 out per pixel at 3.35 TB/s; its depth, 2L + S dependent steps
+    per row of the scan (``depth_per_row``; ``ns_per_row``,
+    ``ns_per_step`` over the H*W pixels of a frame)."""
     pd, p = fpv1_predicted(frames, dev)
     cg = [i for i, f in enumerate(p.flags) if f & frame_ops.FrameFlags.USE_CG]
     parts = ([("delta frame", pd.high)]
@@ -1428,8 +1429,11 @@ def check_cg_flat(frames: np.ndarray, dev) -> list[dict]:
                    plain_ms=once, plain_timing=timing,
                    bound_ms=2 * res.numel() / HBM_BYTES_PER_MS,
                    chain_steps=r * x, max_abs_err=err)
+        seg = predictors.segment_length(x)
         row["bound_share"] = row["bound_ms"] / row["ms"]
         row["ns_per_step"] = row["ms"] * 1e6 / (r * x)
+        row["ns_per_row"] = row["ms"] * 1e6 / r
+        row["depth_per_row"] = 2 * seg + -(-min(x, predictors.TILE) // seg)
         print("cg_flat", json.dumps(row), flush=True)
         out.append(row)
     return out
@@ -1616,7 +1620,8 @@ def check_fpv1(frames: np.ndarray, dev, card: str) -> tuple:
         ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
         bound_by="bytes", bound_share=k4["bound_share"], library_ms=None,
         shape=k4["case"], chain_steps=k4["chain_steps"],
-        ns_per_step=k4["ns_per_step"], cases=cg_rows)
+        ns_per_step=k4["ns_per_step"], ns_per_row=k4["ns_per_row"],
+        depth_per_row=k4["depth_per_row"], cases=cg_rows)
     return k4_row, data
 
 

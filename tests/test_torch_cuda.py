@@ -464,8 +464,7 @@ def test_mutation_fuzz_on_card_then_clean_decode(cuda):
 @pytest.mark.parametrize(
     "shape",
     [(3, 1, 1), (2, 1, 9), (2, 2, 7), (3, 9, 1), (1, 3, 5), (2, 6, 5),
-     # the walk's blocked path starts at 64 columns: just below, at, and
-     # with a partial last block
+     # the serial walk's widest, the scan's narrowest, partial segments
      (1, 40, 63), (2, 65, 64), (1, 9, 64), (1, 70, 200),
      # a grown preview buffer (56 entries at stride 7: 8 rows) and the
      # card check's batch
@@ -516,6 +515,48 @@ def test_cg_flat_kernel_full_frames_and_unaligned_input(cuda):
     view.copy_(res)
     torch.testing.assert_close(tpred.cg_flat_decode(view), small, rtol=0,
                                atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape",
+    [# the serial walk's last width, the scan's first, one above (L = 8)
+     (2, 50, 63), (2, 50, 64), (2, 50, 65),
+     # X = L - 1, L, L + 1 for a full tile's L = 32 (serial walk), and for
+     # the L = 12 of 100 to 144 columns (one segment of 12 short or over)
+     (3, 40, 31), (3, 40, 32), (3, 40, 33), (2, 30, 131), (2, 30, 132),
+     (2, 30, 133),
+     # a tile of 1024 columns: one short, one over (a second, 1-pixel tile)
+     (2, 30, 1023), (2, 30, 1025),
+     # rows wider than a tile: chunks in 40 tiles chained through phase B
+     (1, 4, 40000),
+     # the most frames a launch splits over clusters of 8 CTAs, one more
+     (16, 64, 1024), (17, 64, 1024),
+     # the format's tallest frame, the delta frame, the FPV1 decode batch
+     (1, 65536, 64), (1, 1024, 1024), (63, 1024, 1024)],
+    ids=str,
+)
+def test_cg_flat_scan_edges(cuda, shape):
+    """K4's scan at its edges and at the main path's shapes: exact against
+    the input before ``cg_flat_encode`` and against the plain version (on
+    the leading 4096 rows of the tallest frame: a row never depends on a
+    later one, and the plain version steps once per segment in Python);
+    random residuals too."""
+    from fpv_tpu_torch.models import predictors as tpred
+
+    rng = np.random.default_rng(sum(shape))
+    plane = torch.from_numpy(
+        rng.integers(0, 256, shape, np.int64).astype(np.uint8)).to(cuda)
+    noise = torch.from_numpy(
+        rng.integers(0, 256, shape, np.int64).astype(np.uint8)).to(cuda)
+    res = tpred.cg_flat_encode(plane)
+    got = tpred.cg_flat_decode(res)
+    torch.testing.assert_close(got, plane, rtol=0, atol=0)
+    rows = min(shape[1], 4096)
+    for inp, out in ((res, got), (noise, tpred.cg_flat_decode(noise))):
+        head = inp[:, :rows].contiguous()
+        torch.testing.assert_close(out[:, :rows], tpred.cg_flat_decode_ref(
+            head), rtol=0, atol=0)
 
 
 @pytest.mark.cuda
