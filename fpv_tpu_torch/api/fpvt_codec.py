@@ -21,6 +21,15 @@ ones (the JAX package codes them on the host).
 The reader decodes whole batches, single frames from only the rANS blocks
 that cover them (random access), previews, and (FpvtStreamingReader)
 files that arrive in pieces.
+
+Host stages are named ranges (``utils.profiling.annotate``: profiler
+ranges while a profiler records, beside the kernels they launch):
+``fpvt.write.upload`` / ``code`` / ``serialize`` per batch and
+``fpvt.write.join`` per file; ``fpvt.read.open`` per reader,
+``fpvt.read.parse`` per batch section parsed, ``stage``, ``dispatch`` and
+``finalize`` per batch decoded, ``assemble`` per ``decode_file_fpvt``, and
+in ``decode_frame`` ``fpvt.read.chain`` per prev-chain frame walked and
+``fpvt.read.download`` for the answer.
 """
 
 from __future__ import annotations
@@ -98,6 +107,7 @@ from fpv_tpu_torch.ops.rans_layout import (
     num_segments,
 )
 from fpv_tpu_torch.utils import kernels
+from fpv_tpu_torch.utils.profiling import annotate
 
 # Per-batch size ceiling: one plane batch must stay below 2^31 symbols, the
 # range of the kernels' int32 word offsets and counts.  Batches beyond it
@@ -652,9 +662,10 @@ class FpvtWriter:
         imgs = np.asarray(imgs)
         if imgs.dtype == np.uint8:
             validate_u8_config(self.header.shift, self.header.big_endian)
+        with annotate("fpvt.write.upload"):
+            dev_imgs = self._put(imgs)
         return self._encode_batch_core(
-            self._put(imgs), self.header.shift, self.header.big_endian,
-            timestamps,
+            dev_imgs, self.header.shift, self.header.big_endian, timestamps,
         )
 
     def encode_batch_planes_bytes(
@@ -671,7 +682,8 @@ class FpvtWriter:
             raise RuntimeError("init() must be called first")
         if np.ndim(high) != 3:
             raise ValueError("high must be [B, H, W] uint8")
-        imgs = self._put_planes(high, low)
+        with annotate("fpvt.write.upload"):
+            imgs = self._put_planes(high, low)
         return self._encode_batch_core(imgs, 0, False, timestamps)
 
     def encode_batch_planes(
@@ -693,9 +705,11 @@ class FpvtWriter:
         split_big_endian: bool,
         timestamps: np.ndarray | None,
     ) -> bytes:
-        flags, streams = self._encode_batch_streams(imgs, split_shift,
-                                                    split_big_endian)
-        return self._serialize(flags, streams, timestamps)
+        with annotate("fpvt.write.code"):
+            flags, streams = self._encode_batch_streams(imgs, split_shift,
+                                                        split_big_endian)
+        with annotate("fpvt.write.serialize"):
+            return self._serialize(flags, streams, timestamps)
 
     @staticmethod
     def _serialize(flags: np.ndarray, streams, timestamps) -> bytes:
@@ -1382,18 +1396,20 @@ class FpvtReader:
         (its entries hold device memory), staging batch uploads on the
         device by the section bytes' hash; share one dict across readers
         to stage a replayed or multicast file once."""
-        self._open(data, device, upload_cache)
-        self._data = bytes(data)
-        self._batches = fpvt.parse_footer(self._data)
-        # the footer's counts size the frame index: hold them to their
-        # sections first (a crafted count would claim millions of frames)
-        fpvt.check_footer_counts(self._data, self._batches)
-        self._frame_to_batch: list[tuple[int, int]] = []
-        if self.header.delta_is_frame0:
-            # frame 0 is the delta frame itself (HDR_F_DELTA_IS_FRAME0)
-            self._frame_to_batch.append((-1, 0))
-        for bi, (_off, n) in enumerate(self._batches):
-            self._frame_to_batch.extend((bi, j) for j in range(n))
+        with annotate("fpvt.read.open"):
+            self._open(data, device, upload_cache)
+            self._data = bytes(data)
+            self._batches = fpvt.parse_footer(self._data)
+            # the footer's counts size the frame index: hold them to their
+            # sections first (a crafted count would claim millions of
+            # frames)
+            fpvt.check_footer_counts(self._data, self._batches)
+            self._frame_to_batch: list[tuple[int, int]] = []
+            if self.header.delta_is_frame0:
+                # frame 0 is the delta frame itself (HDR_F_DELTA_IS_FRAME0)
+                self._frame_to_batch.append((-1, 0))
+            for bi, (_off, n) in enumerate(self._batches):
+                self._frame_to_batch.extend((bi, j) for j in range(n))
 
     def _open(self, data: bytes, device, upload_cache=None) -> None:
         """Parse the header and decode the delta section (the part of the
@@ -1449,10 +1465,11 @@ class FpvtReader:
         """parse_batch_section with this file's frame geometry enforced
         (crafted plane_size fields are rejected before any allocation)."""
         h, w = self.header.ysize, self.header.xsize
-        return fpvt.parse_batch_section(
-            self._data, off, plane_size=h * w,
-            preview_size=(h // 4) * (w // 4),
-        )
+        with annotate("fpvt.read.parse"):
+            return fpvt.parse_batch_section(
+                self._data, off, plane_size=h * w,
+                preview_size=(h // 4) * (w // 4),
+            )
 
     def frame0(self) -> np.ndarray:
         """The synthesized first frame when the header declares the delta
@@ -1552,7 +1569,7 @@ class FpvtReader:
                     for name, st in (("high", pb.high), ("low", pb.low),
                                      ("preview", pb.preview))
                     if st is not None]
-        with self._on_stream():
+        with annotate("fpvt.read.stage"), self._on_stream():
             planes = plane_codec.stage_plane_ranges(requests, self._device)
             dev_flags = upload(pb.frame_flags.astype(np.int32), self._device)
             ready = None
@@ -1567,7 +1584,7 @@ class FpvtReader:
         """Queue a staged batch's decode (see
         :meth:`_decode_parsed_batch_issue`) -> finalize."""
         h, w = self.header.ysize, self.header.xsize
-        with self._on_stream():
+        with annotate("fpvt.read.dispatch"), self._on_stream():
             if st.ready is not None:
                 # the inputs may have been staged on another reader's stream
                 self._stream.wait_event(st.ready)
@@ -1603,21 +1620,22 @@ class FpvtReader:
         refs = [frames, pv, ok, keep]
 
         def finalize():
-            frames, pv, ok, _keep = refs
-            refs.clear()
-            host = _download(
-                [ok] if device_frames else [ok, frames, pv], copy, done)
-            if ok is not None:
-                plane_codec.raise_if_bad(coded, host[0].tolist())
-            if device_frames:
-                if copy is not None:
-                    cur = torch.cuda.current_stream(dev)
-                    for t in (frames, pv):
-                        if t is not None:
-                            t.record_stream(cur)
-                return frames, pv
-            return (host[1].numpy().view(np.uint16),
-                    None if pv is None else host[2].numpy())
+            with annotate("fpvt.read.finalize"):
+                frames, pv, ok, _keep = refs
+                refs.clear()
+                host = _download(
+                    [ok] if device_frames else [ok, frames, pv], copy, done)
+                if ok is not None:
+                    plane_codec.raise_if_bad(coded, host[0].tolist())
+                if device_frames:
+                    if copy is not None:
+                        cur = torch.cuda.current_stream(dev)
+                        for t in (frames, pv):
+                            if t is not None:
+                                t.record_stream(cur)
+                    return frames, pv
+                return (host[1].numpy().view(np.uint16),
+                        None if pv is None else host[2].numpy())
 
         return finalize
 
@@ -1663,7 +1681,8 @@ class FpvtReader:
         its batch: both decode the whole batch and cache it instead."""
         bi, j = self._frame_to_batch[index]
         if bi == -1:
-            return self.frame0()
+            with annotate("fpvt.read.download"):
+                return self.frame0()
         if self._cache is not None and self._cache[0] == bi:
             return self._cache[1][j]
         off, b = self._batches[bi]
@@ -1685,9 +1704,11 @@ class FpvtReader:
             t0, ph, pl = cc[1] + 1, cc[2], cc[3]
         with self._on_stream():
             for t in range(t0, j + 1):
-                ph, pl = self._decode_frame_planes(pb, t, ph, pl)
+                with annotate("fpvt.read.chain"):
+                    ph, pl = self._decode_frame_planes(pb, t, ph, pl)
             self._chain_cache = (bi, j, ph, pl)
-            return _to_u16(ph[None], pl[None])[0]
+            with annotate("fpvt.read.download"):
+                return _to_u16(ph[None], pl[None])[0]
 
     def _decode_frame_planes(
         self, pb: fpvt.ParsedBatch, t: int, prev_high: torch.Tensor,
@@ -1942,7 +1963,8 @@ def encode_file_fpvt(
             None if ts_body is None else ts_body[s : s + frames_per_batch],
         ))
     parts.append(wri.finish())
-    return b"".join(parts)
+    with annotate("fpvt.write.join"):
+        return b"".join(parts)
 
 
 def decode_file_fpvt(data: bytes, dtype=np.uint16, device="cuda") -> np.ndarray:
@@ -1962,13 +1984,15 @@ def decode_file_fpvt(data: bytes, dtype=np.uint16, device="cuda") -> np.ndarray:
         if len(pending) == 2:
             outs.append(pending.pop(0)()[0])
     outs += [fin()[0] for fin in pending]
-    if r.header.delta_is_frame0:
-        outs.insert(0, r.frame0()[None])
-    h, w = r.header.ysize, r.header.xsize
-    out = np.concatenate(outs) if outs else np.zeros((0, h, w), np.uint16)
-    if as_u8:
-        return (out >> 8).astype(np.uint8)
-    return out.astype(dtype, copy=False)
+    with annotate("fpvt.read.assemble"):
+        if r.header.delta_is_frame0:
+            outs.insert(0, r.frame0()[None])
+        h, w = r.header.ysize, r.header.xsize
+        out = (np.concatenate(outs) if outs
+               else np.zeros((0, h, w), np.uint16))
+        if as_u8:
+            return (out >> 8).astype(np.uint8)
+        return out.astype(dtype, copy=False)
 
 
 def _warmup_frames(rng, n: int, ysize: int, xsize: int, shift: int):

@@ -1,51 +1,23 @@
-"""Tracing and per-stage timing.
+"""Tracing: one clock, the profiler's.
 
-* :class:`StageTimers` — named wall-clock accumulators for pipeline stages
-  (split/predict/entropy/serialize/transfer), reportable as a dict;
 * :func:`trace` — context manager around ``torch.profiler.profile`` (the
   host, and the card when PyTorch sees one) that writes a Chrome trace
   (chrome://tracing, Perfetto) under ``log_dir`` or ``FPV_TPU_TRACE_DIR``;
-* :func:`annotate` — a named range (``torch.profiler.record_function``, and
-  an NVTX range once CUDA is initialized), so host stages show up beside
-  the kernels in the trace.
+* :func:`annotate` — a named host range (a profiler ``RecordFunction``
+  while a profiler records, and an NVTX range once CUDA is initialized),
+  so host stages show up beside the kernels they launch, on the same
+  clock.  The codec's own ranges are named ``fpvt.<side>.<stage>``
+  (``fpvt.read.parse``, ``fpvt.write.serialize``, ...; ``api/fpvt_codec.py``),
+  the mesh's ``mesh.<phase>``.
 """
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import os
 import time
 
 import torch
-
-
-class StageTimers:
-    """Accumulating wall-clock timers keyed by stage name."""
-
-    def __init__(self) -> None:
-        self.totals: dict[str, float] = collections.defaultdict(float)
-        self.counts: dict[str, int] = collections.defaultdict(int)
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def report(self) -> dict[str, dict[str, float]]:
-        return {
-            k: {"total_s": round(v, 6), "calls": self.counts[k],
-                "mean_ms": round(1000 * v / max(self.counts[k], 1), 3)}
-            for k, v in sorted(self.totals.items())
-        }
-
-    def reset(self) -> None:
-        self.totals.clear()
-        self.counts.clear()
 
 
 @contextlib.contextmanager
@@ -81,17 +53,42 @@ def _all_threads() -> dict:
     return {"experimental_config": cfg}
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named range visible in profiler traces (host timeline, and NVTX for
-    CUDA tools once CUDA is initialized).  Exceptions raised inside the
-    range propagate untouched."""
-    nvtx = torch.cuda.is_initialized()
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
+def _profiling() -> bool:
+    """A torch profiler is recording: one started through
+    ``torch.profiler.profile`` (the Python flag, set for every thread,
+    also with ``profile_all_threads``) or through the autograd C API."""
+    return (torch.autograd.profiler._is_profiler_enabled
+            or torch._C._autograd._profiler_enabled())
+
+
+class annotate:
+    """``with annotate(name):`` -- a named range visible in profiler traces
+    (host timeline) while a profiler records, and to NVTX tools once CUDA
+    is initialized; with neither it opens nothing, so the codec's ranges
+    stay on its hot paths.  Exceptions raised inside the range propagate
+    untouched.
+
+    The profiler range is recorded as a host operation, not as a user
+    annotation (``torch.profiler.record_function``): kineto copies a user
+    annotation onto the card's timeline around the kernels it launched,
+    and such a copy would read as device work in a trace of the card."""
+
+    __slots__ = ("_name", "_range", "_nvtx")
+
+    def __init__(self, name: str) -> None:
+        self._name = name
+
+    def __enter__(self) -> None:
+        self._range = (torch._C._profiler._RecordFunctionFast(self._name)
+                       if _profiling() else None)
+        if self._range is not None:
+            self._range.__enter__()
+        self._nvtx = torch.cuda.is_initialized()
+        if self._nvtx:
+            torch.cuda.nvtx.range_push(self._name)
+
+    def __exit__(self, *exc) -> None:
+        if self._nvtx:
+            torch.cuda.nvtx.range_pop()
+        if self._range is not None:
+            self._range.__exit__(*exc)

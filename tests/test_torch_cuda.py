@@ -1072,3 +1072,48 @@ def test_sharded_fused_decode_on_card(cuda, monkeypatch, shards):
         frames = outs["cuda"][0][i].cpu().numpy().view("<u2").reshape(n, h, w)
         np.testing.assert_array_equal(frames,
                                       want[1 + i * n : 1 + (i + 1) * n])
+
+
+@pytest.mark.cuda
+def test_reader_spans_on_the_kernels_clock(cuda):
+    """In a traced decode the reader's spans and the kernels share the
+    profiler's clock: every batch's K2 starts after its batch's
+    ``fpvt.read.dispatch`` opened.  The spans are host operations, so
+    kineto puts no copy of them on the card's timeline: the window's busy
+    time is that of its kernels, copies and sets alone."""
+    from fpvbench import trace as tracing
+
+    frames = testdata.plasma_frames(33, 256, 256, bits=12)
+    data = fpv_tpu_torch.encode_file_fpvt(frames, shift=4,
+                                          frames_per_batch=8, device=cuda)
+    fpv_tpu_torch.decode_file_fpvt(data, device=cuda)  # warm
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function(tracing.WINDOW):
+            out = fpv_tpu_torch.decode_file_fpvt(data, device=cuda)
+        torch.cuda.synchronize()
+    np.testing.assert_array_equal(out, frames << 4)
+    tr = tracing.from_profiler(prof)
+    dispatch = sorted(h.start for h in tr.host
+                      if h.name == "fpvt.read.dispatch")
+    k2 = sorted(d.start for d in tr.device
+                if "rans_decode_kernel" in d.name)
+    assert len(dispatch) == 4 and len(k2) >= len(dispatch)
+    # a batch's K2 after its dispatch opened and before the next one did
+    batch_k2 = k2[len(k2) - len(dispatch):]
+    assert all(d <= k for d, k in zip(dispatch, batch_k2))
+    assert all(k < d for k, d in zip(batch_k2, dispatch[1:]))
+    on_card = [e for e in prof.profiler.kineto_results.events()
+               if str(e.device_type()).endswith("CUDA")]
+    assert not [e.name() for e in on_card if e.name().startswith("fpvt.")]
+    # the seconds as from_profiler reckons them, so the sums agree exactly
+    work = [tracing.Interval(e.name(), e.start_ns() / 1e9,
+                             e.start_ns() / 1e9 + e.duration_ns() / 1e9,
+                             "kernel")
+            for e in on_card if e.name() != tracing.WINDOW]
+    assert tr.busy_s() == sum(
+        b - a for a, b in tracing.busy_intervals(work, tr.window))
+    print(f"reader spans: busy {tr.busy_s()} s of {tr.window_s} s, "
+          f"{len(tr.kernels())} kernels")
