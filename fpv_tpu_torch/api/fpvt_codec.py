@@ -930,17 +930,22 @@ def _to_u16(high: torch.Tensor, low: torch.Tensor) -> np.ndarray:
     return to_int16(combine_planes(high, low)).cpu().numpy().view(np.uint16)
 
 
-def _download(tensors, copy_stream, done):
+def _download(tensors, copy_stream, done, into=()):
     """Host copies of device ``tensors`` (None stays None), made on
     ``copy_stream`` once the event ``done`` has passed, into pinned
     memory; waits for ``copy_stream`` alone.  Without a stream (the CPU)
-    the tensors themselves."""
+    the tensors themselves.  ``into``: host tensors, one per leading
+    tensor (None for none), that those are copied into and returned as,
+    on either device."""
+    into = list(into) + [None] * (len(tensors) - len(into))
     if copy_stream is None:
-        return list(tensors)
+        return [t if d is None else d.copy_(t) for t, d in zip(tensors, into)]
     with torch.cuda.stream(copy_stream):
         copy_stream.wait_event(done)
-        host = [None if t is None else t.to("cpu", non_blocking=True)
-                for t in tensors]
+        host = [None if t is None
+                else t.to("cpu", non_blocking=True) if d is None
+                else d.copy_(t, non_blocking=True)
+                for t, d in zip(tensors, into)]
     copy_stream.synchronize()
     return host
 
@@ -1519,7 +1524,10 @@ class FpvtReader:
         the reader's copy stream: it reads the integrity checks (a failed
         one raises ValueError naming the plane) and copies frames and
         previews into pinned host memory -> u16 [B, H, W] and u8
-        [B, H//4, W//4] numpy arrays (a new buffer per batch).
+        [B, H//4, W//4] numpy arrays (a new buffer per batch;
+        ``finalize(into)`` downloads the frames into the host int16
+        [B, H, W] tensor ``into`` instead and returns a view of it, as
+        :func:`decode_file_fpvt` does with its output's slices).
 
         ``device_frames``: finalize reads only the integrity checks and
         returns the device tensors: frames int32 [B, H, W] holding the
@@ -1602,6 +1610,15 @@ class FpvtReader:
             return self._finish(frames, pv, coded, ok, device_frames,
                                 keep=st)
 
+    def _issued(self):
+        """An event past the work queued so far on the issue stream (None
+        on the CPU)."""
+        if self._stream is None:
+            return None
+        done = torch.cuda.Event()
+        done.record(self._stream)
+        return done
+
     def _finish(self, frames, pv, coded, ok, device_frames: bool,
                 keep=None):
         """``finalize`` of work queued on the issue stream: ``frames``
@@ -1612,19 +1629,17 @@ class FpvtReader:
         run."""
         if not device_frames:
             frames = to_int16(frames)
-        done = None
-        if self._stream is not None:
-            done = torch.cuda.Event()
-            done.record(self._stream)
+        done = self._issued()
         copy, dev = self._copy_stream, self._device
         refs = [frames, pv, ok, keep]
 
-        def finalize():
+        def finalize(into=None):
             with annotate("fpvt.read.finalize"):
                 frames, pv, ok, _keep = refs
                 refs.clear()
                 host = _download(
-                    [ok] if device_frames else [ok, frames, pv], copy, done)
+                    [ok] if device_frames else [ok, frames, pv], copy, done,
+                    [None, into])
                 if ok is not None:
                     plane_codec.raise_if_bad(coded, host[0].tolist())
                 if device_frames:
@@ -1648,6 +1663,15 @@ class FpvtReader:
             return self._finish(
                 combine_planes(self._delta_high[None], self._delta_low[None]),
                 pv, [], None, device_frames)
+
+    def _frame0_into(self, dst: torch.Tensor) -> None:
+        """Download the synthesized frame 0 (the delta frame) into the
+        host int16 [1, H, W] tensor ``dst`` on the copy stream."""
+        with self._on_stream():
+            f = to_int16(combine_planes(self._delta_high[None],
+                                        self._delta_low[None]))
+            done = self._issued()
+        _download([f], self._copy_stream, done, [dst])
 
     def _issue_batch(self, index: int, want_previews: bool = False):
         """Issue batch ``index``'s decode -> finalize; with an upload
@@ -1967,32 +1991,54 @@ def encode_file_fpvt(
         return b"".join(parts)
 
 
+# decode_file_fpvt's output is page-locked up to this many bytes and
+# pageable above: 1 GiB holds a 512-frame 1024 x 1024 recording, and a
+# longer one is not locked whole
+PINNED_OUTPUT_MAX_BYTES = 1 << 30
+# files decode_file_fpvt decoded, by where their output lives
+DECODE_FILE_OUTPUTS = {"pinned": 0, "pageable": 0}
+
+
 def decode_file_fpvt(data: bytes, dtype=np.uint16, device="cuda") -> np.ndarray:
     """One-shot FPVT decode -> [N, H, W] uint16 (left-aligned values).
 
-    Batch n+1 is issued before batch n is finalized, so on a card batch
-    n's download overlaps batch n+1's decode.  ``dtype=np.uint8`` returns
-    the original 8-bit samples of a file written from uint8 frames; the
-    header's shift must say so."""
+    The output is allocated once, from the header and the frame index, and
+    each batch downloads straight into its slice of it; batch n+1 is
+    issued before batch n is finalized, so on a card batch n's download
+    overlaps batch n+1's decode.  On a card the returned array lives in
+    page-locked memory from torch's caching host allocator while the
+    file's decoded size is at most PINNED_OUTPUT_MAX_BYTES (the block goes
+    back to the cache once the array is freed), and in pageable memory
+    above that or on the CPU.  ``dtype=np.uint8`` returns the original
+    8-bit samples of a file written from uint8 frames; the header's shift
+    must say so."""
     r = FpvtReader(data, device=device)
     as_u8 = np.dtype(dtype) == np.uint8
     if as_u8:
         validate_u8_config(r.header.shift, r.header.big_endian)
-    outs, pending = [], []
-    for i in range(r.num_batches):
-        pending.append(r._issue_batch(i))
+    h, w = r.header.ysize, r.header.xsize
+    n = r.numframes
+    pinned = (r._device.type == "cuda"
+              and 0 < n * h * w * 2 <= PINNED_OUTPUT_MAX_BYTES)
+    out = torch.empty((n, h, w), dtype=torch.int16, pin_memory=pinned)
+    start = 1 if r.header.delta_is_frame0 else 0
+    pending = []
+    for i, (_off, b) in enumerate(r._batches):
+        pending.append((r._issue_batch(i), out[start : start + b]))
+        start += b
         if len(pending) == 2:
-            outs.append(pending.pop(0)()[0])
-    outs += [fin()[0] for fin in pending]
+            fin, dst = pending.pop(0)
+            fin(dst)
+    for fin, dst in pending:
+        fin(dst)
     with annotate("fpvt.read.assemble"):
         if r.header.delta_is_frame0:
-            outs.insert(0, r.frame0()[None])
-        h, w = r.header.ysize, r.header.xsize
-        out = (np.concatenate(outs) if outs
-               else np.zeros((0, h, w), np.uint16))
+            r._frame0_into(out[:1])
+        DECODE_FILE_OUTPUTS["pinned" if pinned else "pageable"] += 1
+        frames = out.numpy().view(np.uint16)
         if as_u8:
-            return (out >> 8).astype(np.uint8)
-        return out.astype(dtype, copy=False)
+            return (frames >> 8).astype(np.uint8)
+        return frames.astype(dtype, copy=False)
 
 
 def _warmup_frames(rng, n: int, ysize: int, xsize: int, shift: int):

@@ -1117,3 +1117,61 @@ def test_reader_spans_on_the_kernels_clock(cuda):
         b - a for a, b in tracing.busy_intervals(work, tr.window))
     print(f"reader spans: busy {tr.busy_s()} s of {tr.window_s} s, "
           f"{len(tr.kernels())} kernels")
+
+
+def _reader_parts(data, cuda):
+    """Frame 0 and every batch's ``decode_batch`` on the card, joined."""
+    r = fpv_tpu_torch.FpvtReader(data, device=cuda)
+    parts = [r.frame0()[None]] if r.header.delta_is_frame0 else []
+    return np.concatenate(
+        parts + [r.decode_batch(i) for i in range(r.num_batches)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [None, 1], ids=["pinned", "over-cap"])
+def test_decode_file_downloads_into_one_output_on_card(cuda, monkeypatch,
+                                                       cap):
+    """decode_file_fpvt downloads every batch (the last one partial) and
+    frame 0 into one output: page-locked from torch's host cache under
+    the cap, pageable over it, the same bytes as the reader's parts."""
+    from fpv_tpu_torch.api import fpvt_codec as tcodec
+
+    if cap is not None:
+        monkeypatch.setattr(tcodec, "PINNED_OUTPUT_MAX_BYTES", cap)
+    frames = testdata.plasma_frames(9, 128, 160, bits=16, seed=11)
+    data = fpv_tpu_torch.encode_file_fpvt(frames, frames_per_batch=3,
+                                          device=cuda)  # batches 3, 3, 2
+    before = dict(tcodec.DECODE_FILE_OUTPUTS)
+    got = fpv_tpu_torch.decode_file_fpvt(data, device=cuda)
+    took = "pageable" if cap is not None else "pinned"
+    assert tcodec.DECODE_FILE_OUTPUTS[took] == before[took] + 1
+    assert sum(tcodec.DECODE_FILE_OUTPUTS.values()) == sum(
+        before.values()) + 1
+    assert torch.from_numpy(got).is_pinned() == (cap is None)
+    assert got.dtype == np.uint16 and got.flags.c_contiguous
+    assert got.flags.writeable
+    assert got.tobytes() == _reader_parts(data, cuda).tobytes()
+    np.testing.assert_array_equal(got, frames)
+
+
+@pytest.mark.cuda
+def test_decode_file_output_is_not_reused_while_held(cuda):
+    """A held output keeps its pinned block: decoding other files of the
+    same size, whose outputs come from torch's host cache and go back to
+    it, never writes into it."""
+    import gc
+
+    shape = (9, 128, 160)
+    fa = testdata.plasma_frames(*shape, bits=12, seed=21)
+    fb = testdata.plasma_frames(*shape, bits=12, seed=22)
+    da, db = (fpv_tpu_torch.encode_file_fpvt(f, shift=4, frames_per_batch=4,
+                                             device=cuda) for f in (fa, fb))
+    a = fpv_tpu_torch.decode_file_fpvt(da, device=cuda)
+    gc.collect()  # the reader and its streams are gone
+    for _ in range(2):
+        b = fpv_tpu_torch.decode_file_fpvt(db, device=cuda)
+        assert not np.shares_memory(a, b)
+        np.testing.assert_array_equal(b, fb << 4)
+        del b
+        gc.collect()
+    np.testing.assert_array_equal(a, fa << 4)

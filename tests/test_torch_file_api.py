@@ -245,6 +245,70 @@ def test_decode_uint8(files):
                                        dtype=np.uint8, device="cpu")
 
 
+def _assembled(data: bytes, dtype) -> np.ndarray:
+    """A whole-file decode put together from the reader's parts: frame 0
+    and every batch's ``decode_batch``, concatenated."""
+    r = fpv_tpu_torch.FpvtReader(data, device="cpu")
+    parts = [r.frame0()[None]] if r.header.delta_is_frame0 else []
+    parts += [r.decode_batch(i) for i in range(r.num_batches)]
+    h, w = r.header.ysize, r.header.xsize
+    out = np.concatenate(parts) if parts else np.zeros((0, h, w), np.uint16)
+    return (out >> 8).astype(np.uint8) if dtype == np.uint8 else out
+
+
+_NO_BATCH = {
+    # frame 0 alone: the delta section and no batch section
+    "frame0-only": dict(frames=_PLASMA[:1]),
+    # an explicit delta frame and no frames at all
+    "no-frames": dict(frames=_PLASMA[:0], delta_frame=_PLASMA[0]),
+}
+
+
+@pytest.mark.parametrize("cap", [None, 1], ids=["cap", "over-cap"])
+@pytest.mark.parametrize("name", [
+    "plasma-ctx16",  # 12-bit, ctx16 low plane
+    "plasma16-order0",  # 16-bit, order-0 low plane
+    "drift-prev",  # batches of 10 and a partial one of 1
+    "delta-frame",  # an explicit delta frame: no frame 0 to download
+    "uint8",  # the uint8 return path
+    "wide",  # 1024-lane streams
+    *_NO_BATCH,
+])
+def test_decode_file_writes_one_output(files, wide_file, monkeypatch, name,
+                                       cap):
+    """decode_file_fpvt downloads each batch into its slice of one output:
+    the bytes are what the reader's parts give concatenated (and JAX's
+    decode), in a C-contiguous array the caller may write to; on the CPU
+    the output is pageable, under or over the pinned cap."""
+    dtype = np.uint8 if name == "uint8" else np.uint16
+    if name in _NO_BATCH:
+        kw = dict(_NO_BATCH[name])
+        data = fpv_tpu_torch.encode_file_fpvt(kw.pop("frames"), shift=4,
+                                              device="cpu", **ENC, **kw)
+        assert tfpvt.parse_footer(data) == []
+    elif name == "wide":
+        data = wide_file[0]
+    else:
+        data = files[name][2]
+    if cap is not None:
+        monkeypatch.setattr(tcodec, "PINNED_OUTPUT_MAX_BYTES", cap)
+    want = _assembled(data, dtype)
+    before = dict(tcodec.DECODE_FILE_OUTPUTS)
+    got = fpv_tpu_torch.decode_file_fpvt(data, dtype=dtype, device="cpu")
+    assert tcodec.DECODE_FILE_OUTPUTS == {
+        "pinned": before["pinned"], "pageable": before["pageable"] + 1}
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.tobytes() == want.tobytes()
+    if len(want):
+        np.testing.assert_array_equal(
+            got, jcodec.decode_file_fpvt(data, dtype=dtype))
+    assert got.flags.c_contiguous and got.flags.writeable
+    got[...] = 1
+    again = fpv_tpu_torch.decode_file_fpvt(data, dtype=dtype, device="cpu")
+    assert again.tobytes() == want.tobytes()
+    assert (got == 1).all()
+
+
 def test_writer_rejects_oversize_device_batch():
     """1 frame x 65536^2 = 2^32 symbols exceeds MAX_DEVICE_SYMS: the guard
     fires before any real frame data is touched (the kernels' int32 word

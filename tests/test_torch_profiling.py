@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import fpv_tpu_torch
+from fpv_tpu_torch.api import fpvt_codec
 from fpv_tpu_torch.entropy import plane_codec
 from fpv_tpu_torch.format.fpvt import F_USE_PREV
 from fpv_tpu_torch.utils import profiling, testdata
@@ -148,6 +149,31 @@ def test_decode_file_spans_every_stage_inside_the_window(wide):
     finalized = [h.start for h in spans if h.name == "fpvt.read.finalize"]
     assert all(d <= f for d, f in zip(dispatched, finalized))
     # the spans follow one another: none encloses another
+    assert all(a.end <= b.start for a, b in zip(spans, spans[1:]))
+
+
+@pytest.mark.parametrize("delta", ["frame0", "explicit"])
+def test_decode_file_downloads_frame0_inside_assemble(wide, monkeypatch,
+                                                      delta):
+    """Frame 0's download into the output opens no span of its own, and
+    the output's branch (here over the pinned cap) adds none: a file
+    still ends in one ``fpvt.read.assemble``, one set of spans a batch."""
+    monkeypatch.setattr(fpvt_codec, "PINNED_OUTPUT_MAX_BYTES", 1)
+    if delta == "frame0":
+        data, want, batches = _encode(), FRAMES << 4, 3
+    else:  # batches of frames 1-3 and 4-6, no synthesized frame 0
+        data = fpv_tpu_torch.encode_file_fpvt(
+            FRAMES[1:7], shift=4, frames_per_batch=FPB, chunk_log2=6,
+            delta_frame=FRAMES[0], device="cpu")
+        want, batches = FRAMES[1:7] << 4, 2
+    out, _tr, spans = _traced(
+        lambda: fpv_tpu_torch.decode_file_fpvt(data, device="cpu"))
+    np.testing.assert_array_equal(out, want)
+    assert _names(spans) == {
+        "fpvt.read.open": 1, "fpvt.read.assemble": 1,
+        **{f"fpvt.read.{s}": batches
+           for s in ("parse", "stage", "dispatch", "finalize")}}
+    assert spans[-1].name == "fpvt.read.assemble"
     assert all(a.end <= b.start for a, b in zip(spans, spans[1:]))
 
 
