@@ -1402,8 +1402,8 @@ class FpvtReader:
         device by the section bytes' hash; share one dict across readers
         to stage a replayed or multicast file once."""
         with annotate("fpvt.read.open"):
-            self._open(data, device, upload_cache)
             self._data = bytes(data)
+            self._open(self._data, device, upload_cache)
             self._batches = fpvt.parse_footer(self._data)
             # the footer's counts size the frame index: hold them to their
             # sections first (a crafted count would claim millions of
@@ -1498,7 +1498,7 @@ class FpvtReader:
     def timestamps(self, index: int) -> np.ndarray:
         """Batch ``index``'s per-frame i64 timestamps (-1 where none)."""
         off, _b = self._batches[index]
-        return self._parse_batch(off).timestamps
+        return self._parse_batch(off).timestamps.copy()
 
     def _decode_parsed_batch(
         self, pb: fpvt.ParsedBatch, b: int, want_previews: bool = False
@@ -1584,8 +1584,11 @@ class FpvtReader:
             if self._stream is not None:
                 ready = torch.cuda.Event()
                 ready.record(self._stream)
-        return _StagedBatch(planes, pb.frame_flags, pb.timestamps, b,
-                            self._device, ready, dev_flags)
+        # copies: a parse of the file's bytes gives views, which would keep
+        # the whole file alive in the upload cache
+        return _StagedBatch(planes, pb.frame_flags.copy(),
+                            pb.timestamps.copy(), b, self._device, ready,
+                            dev_flags)
 
     def _dispatch(self, st: _StagedBatch, want_previews: bool,
                   device_frames: bool):
@@ -1877,7 +1880,7 @@ class FpvtStreamingReader:
             if len(buf) < fpvt.HEADER_SIZE + dsize:
                 return
             inner = FpvtReader.__new__(FpvtReader)
-            inner._open(bytes(buf[: fpvt.HEADER_SIZE + dsize]), self._device,
+            inner._open(buf[: fpvt.HEADER_SIZE + dsize], self._device,
                         self._upload_cache)
             self._inner = inner
             self._pos = fpvt.HEADER_SIZE + dsize

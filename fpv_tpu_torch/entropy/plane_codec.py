@@ -383,11 +383,18 @@ def upload(a: np.ndarray, device) -> torch.Tensor:
     """A host array as a tensor on ``device``.  To a CUDA device it goes
     through pinned memory without waiting for the device: the copy is
     queued on the current stream, as a kernel launch is.  On the CPU the
-    tensor shares the array's memory."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if torch.device(device).type != "cuda":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
+    tensor shares a writable array's memory; a read-only one (a view of a
+    file's bytes, which torch may not share) is copied once, on the way
+    to a card straight into the pinned buffer."""
+    a = np.ascontiguousarray(a)
+    cuda = torch.device(device).type == "cuda"
+    if a.flags.writeable:
+        t = torch.from_numpy(a)
+        return t.pin_memory().to(device, non_blocking=True) if cuda else t
+    dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+    t = torch.empty(a.shape, dtype=dtype, pin_memory=cuda)
+    t.numpy()[...] = a
+    return t.to(device, non_blocking=True) if cuda else t
 
 
 def decode_launch_args(stream: PlaneStream, device
@@ -420,7 +427,9 @@ def stage_blocks(
     ``jobs`` of (name, stream, b0, b1), for one K2 launch: only those
     blocks' states, counts and payload words, each kind of table in one
     copy, the payload slices 16-byte aligned in one padded buffer, as K2
-    stages them.  Nothing waits for the device."""
+    stages them: the one host copy of the payload, from the parse's
+    arrays (views of the file's bytes) into pinned memory.  Nothing waits
+    for the device."""
     dev = torch.device(device)
     parts = {k: [] for k in ("counts", "starts", "states", "lens", "table")}
     pay_off, pays, pos = [], [], 0

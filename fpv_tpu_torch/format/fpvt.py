@@ -158,6 +158,12 @@ def _pad8(n: int) -> int:
     return (-n) % 8
 
 
+# plane streams parsed (coded and CODING_RAW), by whether their arrays are
+# read-only views of an immutable ``bytes`` input or copies of a mutable
+# one (a bytearray, a memoryview)
+PARSED_STREAMS = {"view": 0, "copy": 0}
+
+
 def _need(data, pos: int, n: int) -> None:
     """Bounds guard: malformed input raises ValueError, never struct.error
     or IndexError (reference guard style: fusion_power_video.cc:292-294)."""
@@ -229,6 +235,13 @@ def plane_stream_accounting(ps: PlaneStream) -> dict:
                 lanes=ps.lanes)
 
 
+def _array(data, dtype, count: int, offset: int) -> np.ndarray:
+    """``count`` items of ``dtype`` at ``offset``: a read-only view of
+    ``bytes``, else a copy."""
+    a = np.frombuffer(data, dtype=dtype, count=count, offset=offset)
+    return a if isinstance(data, bytes) else a.copy()
+
+
 def parse_plane_stream(
     data: bytes, pos: int, nframes: int, expect_size: int | None = None
 ) -> tuple[PlaneStream, int]:
@@ -237,7 +250,12 @@ def parse_plane_stream(
     ``plane_size`` field is rejected BEFORE any decode path can allocate
     ``nframes * plane_size`` bytes from a crafted field (CODING_CONST
     streams carry no payload to cross-check against, so this is their only
-    size bound)."""
+    size bound).
+
+    From ``bytes`` the stream's arrays (payload, states, block counts,
+    order-0 table) are read-only views of ``data``, which they keep alive;
+    from a mutable buffer, whose bytes may change or move, they are
+    copies (:data:`PARSED_STREAMS` counts both)."""
     _need(data, pos, 24)
     (size,) = struct.unpack_from("<I", data, pos)
     end = pos + size
@@ -258,16 +276,18 @@ def parse_plane_stream(
         if cval > 255:
             raise ValueError("invalid constant plane value")
         return const_plane_stream(nframes, plane_size, chunk_len, cval), end
+    views = isinstance(data, bytes)
     if coding == CODING_RAW:
         n = nframes * plane_size
         _need(data, p, n)
         if p + n > end:
             raise ValueError("plane stream overruns section")
-        raw = np.frombuffer(data, dtype=np.uint8, count=n, offset=p).copy()
+        raw = _array(data, np.uint8, n, p)
         # num_chunks carries the Adler-32 of the stored bytes (integrity
         # role of the rANS final-state checks; raw has no coder structure)
-        if zlib.adler32(raw.tobytes()) & 0xFFFFFFFF != num_chunks:
+        if zlib.adler32(raw) & 0xFFFFFFFF != num_chunks:
             raise ValueError("raw plane stream checksum mismatch")
+        PARSED_STREAMS["view" if views else "copy"] += 1
         return raw_plane_stream(nframes, plane_size, chunk_len, raw), end
     if coding not in (CODING_ORDER0, CODING_CTX16):
         raise ValueError("unknown plane-stream coding")
@@ -281,37 +301,35 @@ def parse_plane_stream(
         raise ValueError("plane-stream chunk count mismatch")
     _need(data, p, 512)
     if coding == CODING_CTX16:
-        freq = (
-            np.frombuffer(data, dtype=np.uint8, count=CTX_NIDX, offset=p)
-            .astype(np.uint16)
-            .copy()
-        )
+        freq = np.frombuffer(data, dtype=np.uint8, count=CTX_NIDX,
+                             offset=p).astype(np.uint16)
         sums = freq.reshape(CTX_NCTX, -1).astype(np.int64).sum(axis=1)
         if not (sums == CTX_PROB_SCALE).all():
             raise ValueError("invalid frequency table")
     else:
-        freq = np.frombuffer(data, dtype="<u2", count=256, offset=p).copy()
+        freq = _array(data, "<u2", 256, p)
         if int(freq.astype(np.int64).sum()) != PROB_SCALE:
             raise ValueError("invalid frequency table")
     p += 512
     _need(data, p, 4 * num_chunks)
-    states = np.frombuffer(data, dtype="<u4", count=num_chunks, offset=p).copy()
+    states = _array(data, "<u4", num_chunks, p)
     p += 4 * num_chunks
     nblocks = -(-num_chunks // lanes)
     # one count per (block, segment), block-major (rans_layout SEG_LEN)
     ngroups = nblocks * num_segments(chunk_len)
     _need(data, p, 4 * ngroups)
-    block_counts = np.frombuffer(data, dtype="<u4", count=ngroups, offset=p).copy()
+    block_counts = _array(data, "<u4", ngroups, p)
     p += 4 * ngroups
     total_words = int(block_counts.astype(np.int64).sum())
     # each chunk emits at most one word per symbol step of its segment
     if ngroups and block_counts.max() > min(chunk_len, SEG_LEN) * lanes:
         raise ValueError("plane-stream block count out of range")
     _need(data, p, 2 * total_words)
-    payload = np.frombuffer(data, dtype="<u2", count=total_words, offset=p).copy()
+    payload = _array(data, "<u2", total_words, p)
     p += 2 * total_words
     if p > end:
         raise ValueError("plane stream overruns section")
+    PARSED_STREAMS["view" if views else "copy"] += 1
     ps = PlaneStream(
         nframes=nframes,
         plane_size=plane_size,
@@ -368,6 +386,10 @@ def serialize_batch_section(
 
 @dataclasses.dataclass
 class ParsedBatch:
+    """A parsed batch section.  Parsed from ``bytes``, its arrays (frame
+    flags, timestamps and the plane streams') are read-only views of those
+    bytes and keep the whole buffer alive while the batch lives."""
+
     frame_flags: np.ndarray
     timestamps: np.ndarray
     high: PlaneStream
@@ -403,7 +425,10 @@ def parse_batch_section(
 ) -> ParsedBatch:
     """``plane_size`` / ``preview_size``: expected bytes per frame plane
     (header ysize*xsize and (ysize//4)*(xsize//4)); readers pass them so
-    crafted size fields are rejected at parse time."""
+    crafted size fields are rejected at parse time.  From ``bytes`` the
+    batch's arrays are read-only views of ``data`` (which they keep alive,
+    :class:`ParsedBatch`); from a mutable buffer they are copies
+    (:func:`parse_plane_stream`)."""
     _need(data, pos, 17)
     size, stype = struct.unpack_from("<QB", data, pos)
     if stype != SECTION_BATCH:
@@ -415,9 +440,9 @@ def parse_batch_section(
     if not (0 < nframes <= 1 << 20):
         raise ValueError("invalid batch frame count")
     _need(data, p, 9 * nframes)
-    flags = np.frombuffer(data, dtype=np.uint8, count=nframes, offset=p).copy()
+    flags = _array(data, np.uint8, nframes, p)
     p += nframes
-    ts = np.frombuffer(data, dtype="<i8", count=nframes, offset=p).copy()
+    ts = _array(data, "<i8", nframes, p)
     p += 8 * nframes
     high, p = parse_plane_stream(data, p, nframes, expect_size=plane_size)
     low = preview = None

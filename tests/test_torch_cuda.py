@@ -1175,3 +1175,35 @@ def test_decode_file_output_is_not_reused_while_held(cuda):
         del b
         gc.collect()
     np.testing.assert_array_equal(a, fa << 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift,bits", [(0, 16), (4, 12)])
+def test_decode_file_parses_views_on_card(cuda, shift, bits):
+    """decode_file_fpvt on the card of a 1024-lane file (batches of 3, 3
+    and 2 frames) equals the CPU decode; its parse takes every coded and
+    RAW plane stream as a view of the file's bytes and copies none."""
+    from fpv_tpu_torch.format import fpvt
+
+    frames = testdata.plasma_frames(9, 128, 160, bits=bits, seed=23)
+    wri = fpv_tpu_torch.FpvtWriter(160, 128, shift, False, 3, 12,
+                                   device=cuda, delta_is_frame0=True,
+                                   narrow=False)
+    data = b"".join([wri.init(frames[0])]
+                    + [wri.encode_batch(frames[s : s + 3])
+                       for s in range(1, 9, 3)] + [wri.finish()])
+    _df, dh, dl = fpvt.parse_delta_section(bytearray(data), fpvt.HEADER_SIZE)
+    streams = [dh, dl]
+    for off, _n in fpvt.parse_footer(data):
+        pb = fpvt.parse_batch_section(bytearray(data), off)
+        streams += [pb.high, pb.low, pb.preview]
+    coded = sum(st is not None and st.coding != fpvt.CODING_CONST
+                for st in streams)
+    assert coded >= 8
+    before = dict(fpvt.PARSED_STREAMS)
+    got = fpv_tpu_torch.decode_file_fpvt(data, device=cuda)
+    assert fpvt.PARSED_STREAMS == {"view": before["view"] + coded,
+                                   "copy": before["copy"]}
+    np.testing.assert_array_equal(
+        got, fpv_tpu_torch.decode_file_fpvt(data, device="cpu"))
+    np.testing.assert_array_equal(got, frames << shift)
