@@ -51,8 +51,6 @@ from fpv_tpu_torch.entropy.plane_codec import (
     const_plane_stream,
     ctx_combine_device,
     ctx_presence_device,
-    decode_plane_batch,
-    decode_plane_ranges,
     encode_plane_batch,
     lens_tensor,
     upload,
@@ -808,22 +806,21 @@ def _flag_hints(flags: np.ndarray) -> dict:
     )
 
 
-def _inverse_spatial(res: torch.Tensor, spatial, any_up: bool | None = None,
-                     any_cg: bool | None = None) -> torch.Tensor:
-    """Invert each frame's spatial predictor, ``spatial`` [B] modes 0/1/2
-    (a host array, or a tensor on ``res``'s device with the ``any_*``
-    hints saying which modes occur): 'up' by prefix sum, CG2D by the
-    wavefront (K3), each over the whole batch when a frame asks for it and
-    selected per frame, as the JAX package's program does."""
-    if isinstance(spatial, np.ndarray):
-        any_up = bool((spatial == SPATIAL_UP).any())
-        any_cg = bool((spatial == SPATIAL_CG2D).any())
-        spatial = upload(spatial.astype(np.int32), res.device)
+def _inverse_spatial(res: torch.Tensor, flags: torch.Tensor, shift: int,
+                     any_up: bool, any_cg: bool) -> torch.Tensor:
+    """Invert each frame's spatial predictor, its mode 0/1/2 in bits
+    ``shift`` and ``shift + 1`` of ``flags`` [B] int32 on ``res``'s
+    device, the hints (:func:`_flag_hints`) saying which modes occur: 'up'
+    by prefix sum, CG2D by the wavefront (K3), each over the whole batch
+    when a frame asks for it and selected per frame, as the JAX package's
+    program does."""
     out = res
+    if any_up or any_cg:
+        mode = flags & (3 << shift)  # compared in place, not shifted down
     if any_up:
-        out = _where3(spatial == SPATIAL_UP, up_decode(res), out)
+        out = _where3(mode == SPATIAL_UP << shift, up_decode(res), out)
     if any_cg:
-        out = _where3(spatial == SPATIAL_CG2D, cg2d_decode(res), out)
+        out = _where3(mode == SPATIAL_CG2D << shift, cg2d_decode(res), out)
     return out
 
 
@@ -834,7 +831,7 @@ def _inverse_preview(
     """Invert a [B, ph, pw] preview residual batch (``flags`` [B] int32 on
     its device): each frame's spatial prediction, then the delta against
     the delta frame's preview (F_PV_USE_DELTA)."""
-    pv = _inverse_spatial(pv, (flags >> F_PV_SPATIAL_SHIFT) & 3, pv_any_up,
+    pv = _inverse_spatial(pv, flags, F_PV_SPATIAL_SHIFT, pv_any_up,
                           pv_any_cg)
     if any_pv_delta:
         pv_delta = generate_preview(delta_high[None])
@@ -842,86 +839,95 @@ def _inverse_preview(
     return pv
 
 
-def _decode_high_low(
-    high: PlaneStream, low: PlaneStream | None, device, lo: int = 0,
-    hi: int | None = None, what: str = "",
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Symbols ``lo:hi`` (default: all) of a high plane stream and its
-    optional low plane stream, decoded together (one K2 launch) -> flat u8
-    tensors; a missing low plane is zeros."""
-    hi = high.nframes * high.plane_size if hi is None else hi
-    named = [(f"{what}high", high)]
-    if low is not None:
-        named.append((f"{what}low", low))
-    out = decode_plane_ranges([(n, st, lo, hi) for n, st in named], device)
-    if low is None:
-        out.append(torch.zeros_like(out[0]))
-    return out[0], out[1]
-
-
 def _decode_delta_planes(dflags, dh_stream, dl_stream, h, w, device):
-    """Decode the delta-section planes, inverting the high plane's spatial
-    prediction recorded in dflags bits 1-2 (see FpvtWriter._init_core)."""
-    dh, dl = _decode_high_low(dh_stream, dl_stream, device, what="delta ")
-    dh = _inverse_spatial(dh.reshape(1, h, w),
-                          np.array([(dflags >> F_SPATIAL_SHIFT) & 3]))
-    return dh[0], dl.reshape(h, w)
+    """Decode the delta-section planes -> (high, low) u8 [H, W], inverting
+    the high plane's spatial prediction recorded in dflags bits 1-2 (see
+    FpvtWriter._init_core); a failed integrity check raises ValueError
+    naming the plane."""
+    flags = np.array([dflags], np.int32)
+    staged = plane_codec.stage_plane_ranges(
+        [(n, st, 0, h * w) for n, st in (("high", dh_stream),
+                                         ("low", dl_stream))
+         if st is not None], device)
+    high, low, _pv, coded, ok = _decode_staged(
+        staged, ("high", "low"), upload(flags, device), _flag_hints(flags),
+        1, h, w, None, None)
+    if ok is not None:
+        plane_codec.raise_if_bad([f"delta {n}" for n in coded],
+                                 ok.cpu().tolist())
+    return high[0], low[0]
 
 
 def _apply_temporal(high, low, flags: torch.Tensor, delta_high, delta_low,
-                    any_prev: bool):
+                    any_prev: bool, prev=None):
     """Invert the temporal prediction (``flags`` [B] int32 on the planes'
     device): static delta-add, or, when ``any_prev`` says a frame has
     F_USE_PREV, a mod-256 running sum over frames (frame t adds frame
-    t-1's planes; frame 0's previous frame is the delta section), two
-    elementwise launches a frame and plane."""
+    t-1's planes), two elementwise launches a frame and plane.  ``prev``:
+    the (high, low) [H, W] planes before frame 0, default the delta
+    planes (a chain frame is a batch of one after the chain's planes).
+    Without delta planes (None: the delta section itself) nothing is
+    added."""
+    if delta_high is None:
+        return high, low
     ud = (flags & F_USE_DELTA) != 0
     if not any_prev:
         return (_where3(ud, high + delta_high[None], high),
                 _where3(ud, low + delta_low[None], low))
     up = (flags & F_USE_PREV) != 0
+    prev_high, prev_low = prev if prev is not None else (delta_high,
+                                                         delta_low)
 
-    def chain(res, delta):
+    def chain(res, delta, prev):
         static = _where3(ud, delta.expand_as(res), 0)  # per-frame delta add
         out = torch.empty_like(res)
-        prev = delta
         for t in range(res.shape[0]):
             torch.add(res[t], torch.where(up[t], prev, static[t]), out=out[t])
             prev = out[t]
         return out
 
-    return chain(high, delta_high), chain(low, delta_low)
+    return chain(high, delta_high, prev_high), chain(low, delta_low, prev_low)
 
 
 def _decode_staged(
-    staged: plane_codec.StagedRanges, flags: torch.Tensor, b: int, h: int,
-    w: int, delta_high: torch.Tensor, delta_low: torch.Tensor,
-    previews: bool, hints: dict,
+    staged: plane_codec.StagedRanges, names, flags: torch.Tensor,
+    hints: dict, b: int, h: int, w: int, delta_high, delta_low, prev=None,
 ):
-    """The one batch decode path, shared by :class:`FpvtReader` and
-    :func:`fused_decode_batch`: one K2 launch for the staged coded planes
-    (the preview too with ``previews``), the inverse spatial prediction
-    (K3 on CG2D frames and previews), the temporal add and the plane
-    combine, all queued and nothing waited for.  ``flags`` [B] int32 on
-    the device; ``hints``: :func:`_flag_hints`' keys.  -> (frames int32
-    [B, H, W] u16 values, previews u8 [B, H//4, W//4] or None when not
-    asked for or not staged, the coded planes' names, a bool tensor of
-    their integrity checks or None)."""
-    names = [n for n in staged.names if previews or n != "preview"]
+    """The one decode core, from staged plane streams to planes, shared by
+    every reader path (batches, chain frames, previews, the delta section)
+    and the module-level decode API: one K2 launch for the staged coded
+    planes among ``names`` (of "high", "low" and "preview"), then the
+    inverse predictions (K3 on CG2D frames and previews), the temporal add
+    (:func:`_apply_temporal`, with ``prev``), all queued and nothing waited
+    for.  ``flags`` [B] int32 on the device; ``hints``: :func:`_flag_hints`'
+    keys (those of the planes asked for).  A low plane asked for but not
+    staged is zeros; a missing preview is zeros for frames under 4 x 4,
+    else ValueError.  -> (high and low u8 [B, H, W], or None without
+    "high"; previews u8 [B, H//4, W//4] or None without "preview"; the
+    coded planes' names; a bool tensor of their integrity checks or
+    None)."""
     outs, coded, ok = plane_codec.launch_plane_ranges(staged, names)
-    high = outs["high"].reshape(b, h, w)
-    low = (outs["low"].reshape(b, h, w) if "low" in outs
-           else torch.zeros_like(high))
-    high = _inverse_spatial(high, (flags >> F_SPATIAL_SHIFT) & 3,
-                            hints["any_up"], hints["any_cg"])
-    high, low = _apply_temporal(high, low, flags, delta_high, delta_low,
-                                hints["any_prev"])
-    pv = outs.get("preview") if previews else None
-    if pv is not None:
-        pv = _inverse_preview(pv.reshape(b, h // 4, w // 4), flags,
-                              delta_high, hints["pv_any_up"],
-                              hints["pv_any_cg"], hints["any_pv_delta"])
-    return combine_planes(high, low), pv, coded, ok
+    high = low = pv = None
+    if "high" in names:
+        high = _inverse_spatial(outs["high"].reshape(b, h, w), flags,
+                                F_SPATIAL_SHIFT, hints["any_up"],
+                                hints["any_cg"])
+        low = (outs["low"].reshape(b, h, w) if "low" in outs
+               else torch.zeros_like(high))
+        high, low = _apply_temporal(high, low, flags, delta_high, delta_low,
+                                    hints["any_prev"], prev)
+    if "preview" in names:
+        ph, pw = h // 4, w // 4
+        if "preview" in outs:
+            pv = _inverse_preview(outs["preview"].reshape(b, ph, pw), flags,
+                                  delta_high, hints["pv_any_up"],
+                                  hints["pv_any_cg"], hints["any_pv_delta"])
+        elif ph * pw == 0:
+            pv = torch.zeros((b, ph, pw), dtype=torch.uint8,
+                             device=flags.device)
+        else:
+            raise ValueError("batch has no preview stream")
+    return high, low, pv, coded, ok
 
 
 def _to_u16(high: torch.Tensor, low: torch.Tensor) -> np.ndarray:
@@ -1199,10 +1205,10 @@ def fused_decode_batch(
     hints = dict(any_up=any_up, any_cg=any_cg, pv_any_up=pv_any_up,
                  pv_any_cg=pv_any_cg, any_pv_delta=any_pv_delta,
                  any_prev=any_prev)
-    dh = _on(delta_high, dev, torch.uint8)
-    imgs, pv, _coded, ok = _decode_staged(
-        staged, _on(flags, dev, torch.int32), b, h, w, dh,
-        _on(delta_low, dev, torch.uint8), decode_preview, hints)
+    high, low, pv, _coded, ok = _decode_staged(
+        staged, names, _on(flags, dev, torch.int32), hints, b, h, w,
+        _on(delta_high, dev, torch.uint8), _on(delta_low, dev, torch.uint8))
+    imgs = combine_planes(high, low)
     ok = ok.all() if ok is not None else torch.ones((), dtype=torch.bool,
                                                     device=dev)
     if pack_u8:
@@ -1210,8 +1216,6 @@ def fused_decode_batch(
             torch.uint8).reshape(b * h, 2 * w)
     if not decode_preview:
         return imgs, ok
-    if pv is None:  # frames under 4 x 4 have empty previews
-        pv = torch.zeros((b, h // 4, w // 4), dtype=torch.uint8, device=dev)
     return imgs, ok, pv
 
 
@@ -1232,31 +1236,27 @@ def fused_decode_frame(
     ``use_delta`` adds ``delta_high``/``delta_low`` (the previous frame's
     planes for F_USE_PREV).  ``fc_*`` and ``rows_*`` are not read."""
     dev = _arg_device((pay_h, cnt_h, delta_high), device)
-    s = h * w
-    planes = [(pay_h, cnt_h, st_h, lens_h, sym_h, False)]
+    planes = [(pay_h, cnt_h, st_h, lens_h, sym_h, off_h, False)]
     if not no_low:
-        planes.append((pay_l, cnt_l, st_l, lens_l, sym_l, low_ctx))
+        planes.append((pay_l, cnt_l, st_l, lens_l, sym_l, off_l, low_ctx))
+    names = ["high", "low"][: len(planes)]
     jobs = [_decode_plane(
         _on(cnt, dev, torch.int32), 0, _on(st, dev, torch.int32),
         _on(lens, dev, torch.int32).reshape(-1, BLOCK_LANES), chunk_len,
         _on(sym, dev, torch.int32),
         rans_cuda.staged_payload(_on(pay, dev, torch.int16).reshape(-1)), ctx)
-        for pay, cnt, st, lens, sym, ctx in planes]
-    syms, ok = plane_codec.launch_blocks(
-        plane_codec.StagedBlocks(["high", "low"][: len(jobs)], jobs))
-
-    def cut(flat, off):
-        if isinstance(off, torch.Tensor):
-            off = off.to(dev, torch.int64) + torch.arange(s, device=dev)
-            return flat[off].reshape(1, h, w)
-        return flat[int(off) : int(off) + s].reshape(1, h, w)
-
-    high = _inverse_spatial(cut(syms[0], off_h), np.array([spatial]))
-    low = (torch.zeros_like(high) if no_low else cut(syms[1], off_l))
-    if use_delta:
-        high = high + _on(delta_high, dev, torch.uint8)[None]
-        if not no_low:
-            low = low + _on(delta_low, dev, torch.uint8)[None]
+        for pay, cnt, st, lens, sym, _off, ctx in planes]
+    staged = plane_codec.StagedRanges(
+        names, [None] * len(jobs), plane_codec.StagedBlocks(names, jobs),
+        [(i, int(p[5]), h * w) for i, p in enumerate(planes)])
+    flags = np.array([(spatial << F_SPATIAL_SHIFT)
+                      | (F_USE_DELTA if use_delta else 0)], np.int32)
+    dl = _on(delta_low, dev, torch.uint8)
+    if no_low:  # the low plane stays zeros, as in the JAX program
+        dl = torch.zeros_like(dl)
+    high, low, _pv, _coded, ok = _decode_staged(
+        staged, ("high", "low"), upload(flags, dev), _flag_hints(flags), 1,
+        h, w, _on(delta_high, dev, torch.uint8), dl)
     return combine_planes(high, low)[0], ok.all()
 
 
@@ -1273,18 +1273,20 @@ def fused_decode_preview(
     on CG2D previews) and the delta frame's preview where F_PV_USE_DELTA
     says.  ``fc`` and ``rows_alloc`` are not read."""
     dev = _arg_device((payload, counts, delta_high), device)
-    s = ph * pw
     job = _decode_plane(
         _on(counts, dev, torch.int32), 0, _on(states, dev, torch.int32),
-        _lens(b, s, chunk_len, dev), chunk_len, _on(sym_tab, dev, torch.int32),
+        _lens(b, ph * pw, chunk_len, dev), chunk_len,
+        _on(sym_tab, dev, torch.int32),
         rans_cuda.staged_payload(_on(payload, dev, torch.int16).reshape(-1)),
         False)
-    syms, ok = plane_codec.launch_blocks(
-        plane_codec.StagedBlocks(["preview"], [job]))
-    pv = _inverse_preview(syms[0][: b * s].reshape(b, ph, pw),
-                          _on(flags, dev, torch.int32),
-                          _on(delta_high, dev, torch.uint8), pv_any_up,
-                          pv_any_cg, any_pv_delta)
+    staged = plane_codec.StagedRanges(
+        ["preview"], [None], plane_codec.StagedBlocks(["preview"], [job]),
+        [(0, 0, b * ph * pw)])
+    hints = dict(pv_any_up=pv_any_up, pv_any_cg=pv_any_cg,
+                 any_pv_delta=any_pv_delta)
+    _h, _l, pv, _coded, ok = _decode_staged(
+        staged, ("preview",), _on(flags, dev, torch.int32), hints, b, 4 * ph,
+        4 * pw, _on(delta_high, dev, torch.uint8), None)
     return pv, ok.all()
 
 
@@ -1391,8 +1393,7 @@ class FpvtReader:
     On a CUDA device the reader queues its uploads (from pinned memory),
     kernels and elementwise work on an issue stream of its own and copies
     batches to the host on a second stream, so a batch's download can
-    overlap the next batch's upload and decode
-    (:meth:`_decode_parsed_batch_issue`)."""
+    overlap the next batch's upload and decode (:meth:`_issue`)."""
 
     def __init__(
         self, data: bytes, device="cuda", upload_cache: dict | None = None
@@ -1466,14 +1467,15 @@ class FpvtReader:
             r._delta_low = self._delta_low.to(dev)
         return r
 
-    def _parse_batch(self, off: int) -> fpvt.ParsedBatch:
-        """parse_batch_section with this file's frame geometry enforced
+    def _parse_batch(self, off: int, data=None) -> fpvt.ParsedBatch:
+        """parse_batch_section of the section at ``off`` in ``data``
+        (default the file) with this file's frame geometry enforced
         (crafted plane_size fields are rejected before any allocation)."""
         h, w = self.header.ysize, self.header.xsize
         with annotate("fpvt.read.parse"):
             return fpvt.parse_batch_section(
-                self._data, off, plane_size=h * w,
-                preview_size=(h // 4) * (w // 4),
+                self._data if data is None else data, off,
+                plane_size=h * w, preview_size=(h // 4) * (w // 4),
             )
 
     def frame0(self) -> np.ndarray:
@@ -1500,77 +1502,69 @@ class FpvtReader:
         off, _b = self._batches[index]
         return self._parse_batch(off).timestamps.copy()
 
-    def _decode_parsed_batch(
-        self, pb: fpvt.ParsedBatch, b: int, want_previews: bool = False
-    ) -> tuple[np.ndarray, np.ndarray | None]:
-        """Decode a parsed batch -> (frames u16 [B, H, W], previews u8
-        [B, H//4, W//4] or None): issue, then finalize."""
-        return self._decode_parsed_batch_issue(pb, b, want_previews)()
+    def _issue(self, batch, want_previews: bool = False,
+               device_frames: bool = False, key=None):
+        """Issue one batch's decode, returning ``finalize(into=None) ->
+        (frames, previews or None)``, whose ``timestamps`` attribute holds
+        the batch's i64 timestamps.
 
-    def _decode_parsed_batch_issue(
-        self, pb: fpvt.ParsedBatch, b: int, want_previews: bool = False,
-        device_frames: bool = False, section_key=None,
-    ):
-        """Issue a parsed batch's decode, returning ``finalize() ->
-        (frames, previews or None)``.
+        ``batch``: the index of one of this file's batches, ``(buffer,
+        offset)`` of a batch section in a buffer the caller holds (the
+        streaming reader's), or a parsed batch (never cached).  With an
+        upload cache, a section's staged inputs (with its flags,
+        timestamps and frame count) are kept under ``key``, default a hash
+        of its bytes (:func:`_section_key`): a section staged under it on
+        this reader's device skips the parse and the uploads, and an entry
+        on another device is replaced.  The delta planes and streams are
+        this reader's, so readers of different delta frames share only the
+        staged batch inputs.
 
         The issue step queues all the batch's device work and waits for
         none of it: the uploads (:func:`plane_codec.stage_plane_ranges`),
         one K2 launch for the high and low planes (and the preview plane
         with ``want_previews``), the inverse predictions (K3 on CG2D
-        frames and previews), the temporal add and the plane combine.
-        Every plane stream decodes by its own coding and geometry (wide,
-        narrow, const or raw).  ``finalize`` waits for that work alone, on
-        the reader's copy stream: it reads the integrity checks (a failed
-        one raises ValueError naming the plane) and copies frames and
-        previews into pinned host memory -> u16 [B, H, W] and u8
-        [B, H//4, W//4] numpy arrays (a new buffer per batch;
-        ``finalize(into)`` downloads the frames into the host int16
-        [B, H, W] tensor ``into`` instead and returns a view of it, as
-        :func:`decode_file_fpvt` does with its output's slices).
+        frames and previews), the temporal add and the plane combine
+        (:func:`_decode_staged`).  Every plane stream decodes by its own
+        coding and geometry (wide, narrow, const or raw).  ``finalize``
+        waits for that work alone, on the reader's copy stream: it reads
+        the integrity checks (a failed one raises ValueError naming the
+        plane) and copies frames and previews into pinned host memory ->
+        u16 [B, H, W] and u8 [B, H//4, W//4] numpy arrays (a new buffer
+        per batch; ``finalize(into)`` downloads the frames into the host
+        int16 [B, H, W] tensor ``into`` instead and returns a view of it,
+        as :func:`decode_file_fpvt` does with its output's slices).
 
         ``device_frames``: finalize reads only the integrity checks and
         returns the device tensors: frames int32 [B, H, W] holding the
         u16 values (what ``combine_planes`` gives; torch has no full
         uint16 support), previews uint8 [B, H//4, W//4].  They are
         recorded on the finalizing thread's current stream, so that thread
-        may use and free them there.
-
-        ``section_key``: with an upload cache, the key the staged inputs
-        (with the batch's flags, timestamps and frame count) are kept
-        under; a later :meth:`_staged_issue` of that key skips the parse
-        and the uploads.  An entry staged on another device is replaced."""
-        staged = self._cached(section_key)
+        may use and free them there."""
+        staged = pb = None
+        if isinstance(batch, fpvt.ParsedBatch):
+            pb, key = batch, None
+        else:
+            buf, off = (batch if isinstance(batch, tuple)
+                        else (self._data, self._batches[batch][0]))
+            if self._upload_cache is None:
+                key = None
+            else:
+                if key is None:
+                    (size,) = struct.unpack_from("<Q", buf, off)
+                    key = _section_key(memoryview(buf)[off : off + size],
+                                       self.header)
+                staged = self._upload_cache.get(key)
+                if staged is not None and staged.device != self._device:
+                    staged = None
         if staged is None:
-            staged = self._stage(pb, b)
-            if self._upload_cache is not None and section_key is not None:
-                self._upload_cache[section_key] = staged
+            if pb is None:
+                pb = self._parse_batch(off, buf)
+            staged = self._stage(pb)
+            if key is not None:
+                self._upload_cache[key] = staged
         return self._dispatch(staged, want_previews, device_frames)
 
-    def _cached(self, key) -> _StagedBatch | None:
-        """The upload cache's batch under ``key`` if it lies on this
-        reader's device."""
-        if self._upload_cache is None or key is None:
-            return None
-        staged = self._upload_cache.get(key)
-        if staged is None or staged.device != self._device:
-            return None
-        return staged
-
-    def _staged_issue(self, section_key, want_previews: bool,
-                      device_frames: bool):
-        """Issue a batch decode straight from the upload cache, without
-        parsing its section -> ``(finalize, b, timestamps)``, or None when
-        ``section_key`` is not staged.  The delta planes and streams are
-        this reader's, so streams with different delta frames share only
-        the uploaded batch inputs."""
-        staged = self._cached(section_key)
-        if staged is None:
-            return None
-        fin = self._dispatch(staged, want_previews, device_frames)
-        return fin, staged.b, staged.timestamps
-
-    def _stage(self, pb: fpvt.ParsedBatch, b: int) -> _StagedBatch:
+    def _stage(self, pb: fpvt.ParsedBatch) -> _StagedBatch:
         """Upload a parsed batch's plane streams (the preview's too)."""
         _check_batch_size(pb)
         requests = [(name, st, 0, st.nframes * st.plane_size)
@@ -1587,31 +1581,30 @@ class FpvtReader:
         # copies: a parse of the file's bytes gives views, which would keep
         # the whole file alive in the upload cache
         return _StagedBatch(planes, pb.frame_flags.copy(),
-                            pb.timestamps.copy(), b, self._device, ready,
-                            dev_flags)
+                            pb.timestamps.copy(), len(pb.frame_flags),
+                            self._device, ready, dev_flags)
 
     def _dispatch(self, st: _StagedBatch, want_previews: bool,
                   device_frames: bool):
-        """Queue a staged batch's decode (see
-        :meth:`_decode_parsed_batch_issue`) -> finalize."""
+        """Queue a staged batch's decode (see :meth:`_issue`) ->
+        finalize."""
         h, w = self.header.ysize, self.header.xsize
+        names = ("high", "low", "preview")[: 3 if want_previews else 2]
         with annotate("fpvt.read.dispatch"), self._on_stream():
             if st.ready is not None:
                 # the inputs may have been staged on another reader's stream
                 self._stream.wait_event(st.ready)
-            frames, pv, coded, ok = _decode_staged(
-                st.planes, st.dev_flags, st.b, h, w, self._delta_high,
-                self._delta_low, want_previews, _flag_hints(st.flags))
+            high, low, pv, coded, ok = _decode_staged(
+                st.planes, names, st.dev_flags, _flag_hints(st.flags), st.b,
+                h, w, self._delta_high, self._delta_low)
             if want_previews:
-                if pv is None:
-                    pv = self._previews(None, st.flags, st.b)
                 direct = dict(zip(st.planes.names, st.planes.direct))
                 kept = direct.get("preview")
                 if device_frames and kept is not None and (
                         pv.data_ptr() == kept.data_ptr()):
                     pv = pv.clone()  # never hand out the cache's own bytes
-            return self._finish(frames, pv, coded, ok, device_frames,
-                                keep=st)
+            return self._finish(combine_planes(high, low), pv, coded, ok,
+                                device_frames, st.timestamps, keep=st)
 
     def _issued(self):
         """An event past the work queued so far on the issue stream (None
@@ -1623,13 +1616,13 @@ class FpvtReader:
         return done
 
     def _finish(self, frames, pv, coded, ok, device_frames: bool,
-                keep=None):
+                timestamps: np.ndarray, keep=None):
         """``finalize`` of work queued on the issue stream: ``frames``
         int32 [B, H, W] u16 values, ``pv`` u8 previews or None, ``coded``
         the names of the rANS-decoded planes and ``ok`` their integrity
-        checks (None when there are none).  Runs on the issue stream.
-        ``keep``: staged inputs the queued work reads, held until it has
-        run."""
+        checks (None when there are none), ``timestamps`` the batch's
+        (``finalize.timestamps``).  Runs on the issue stream.  ``keep``:
+        staged inputs the queued work reads, held until it has run."""
         if not device_frames:
             frames = to_int16(frames)
         done = self._issued()
@@ -1655,6 +1648,7 @@ class FpvtReader:
                 return (host[1].numpy().view(np.uint16),
                         None if pv is None else host[2].numpy())
 
+        finalize.timestamps = timestamps
         return finalize
 
     def _frame0_issue(self, want_previews: bool, device_frames: bool):
@@ -1665,7 +1659,7 @@ class FpvtReader:
                   else None)
             return self._finish(
                 combine_planes(self._delta_high[None], self._delta_low[None]),
-                pv, [], None, device_frames)
+                pv, [], None, device_frames, np.full(1, -1, np.int64))
 
     def _frame0_into(self, dst: torch.Tensor) -> None:
         """Download the synthesized frame 0 (the delta frame) into the
@@ -1676,24 +1670,19 @@ class FpvtReader:
             done = self._issued()
         _download([f], self._copy_stream, done, [dst])
 
-    def _issue_batch(self, index: int, want_previews: bool = False):
-        """Issue batch ``index``'s decode -> finalize; with an upload
-        cache, a batch already staged under its section's hash skips the
-        parse and the uploads."""
-        off, b = self._batches[index]
-        key = None
-        if self._upload_cache is not None:
-            (size,) = struct.unpack_from("<Q", self._data, off)
-            key = _section_key(self._data[off : off + size], self.header)
-            hit = self._staged_issue(key, want_previews, False)
-            if hit is not None:
-                return hit[0]
-        return self._decode_parsed_batch_issue(
-            self._parse_batch(off), b, want_previews, section_key=key)
+    def _download_checked(self, t: torch.Tensor, coded, ok) -> torch.Tensor:
+        """A host copy of ``t``, queued on the issue stream, once the
+        integrity checks ``ok`` (None: none) of the planes named in
+        ``coded`` pass, in one wait; a failed one raises ValueError naming
+        the plane."""
+        host = _download([t, ok], self._copy_stream, self._issued())
+        if ok is not None:
+            plane_codec.raise_if_bad(coded, host[1].tolist())
+        return host[0]
 
     def decode_batch(self, index: int) -> np.ndarray:
         """Decode batch ``index`` -> [B, H, W] uint16 (left-aligned values)."""
-        return self._issue_batch(index)()[0]
+        return self._issue(index)()[0]
 
     def decode_frame(self, index: int) -> np.ndarray:
         """Random-access decode of ONE frame by global frame index ->
@@ -1702,18 +1691,20 @@ class FpvtReader:
         Serves from the batch cache when its batch was decoded last;
         otherwise, for 1024-lane streams, decodes only the rANS blocks
         covering the frame, walking a prev-frame chain back to its anchor
-        (the writer bounds chains to PREV_ANCHOR - 1 frames).  A narrow
-        stream is one block (NARROW_MAX_K * lanes covers a whole narrow
-        batch), and a chain beyond 2 * PREV_ANCHOR frames costs more than
-        its batch: both decode the whole batch and cache it instead."""
+        (the writer bounds chains to PREV_ANCHOR - 1 frames): each chain
+        frame is a batch of one through :func:`_decode_staged`, one K2
+        launch each, and the integrity checks are read once, with the
+        answer.  A narrow stream is one block (NARROW_MAX_K * lanes covers
+        a whole narrow batch), and a chain beyond 2 * PREV_ANCHOR frames
+        costs more than its batch: both decode the whole batch and cache
+        it instead."""
         bi, j = self._frame_to_batch[index]
         if bi == -1:
             with annotate("fpvt.read.download"):
                 return self.frame0()
         if self._cache is not None and self._cache[0] == bi:
             return self._cache[1][j]
-        off, b = self._batches[bi]
-        pb = self._parse_batch(off)
+        pb = self._parse_batch(self._batches[bi][0])
         j0 = j
         while j0 > 0 and pb.frame_flags[j0] & F_USE_PREV:
             j0 -= 1
@@ -1722,49 +1713,46 @@ class FpvtReader:
             for st in (pb.high, pb.low) if st is not None
         )
         if not wide or j - j0 > 2 * PREV_ANCHOR:
-            self._cache = (bi, self._decode_parsed_batch(pb, b)[0])
+            self._cache = (bi, self._issue(pb)()[0])
             return self._cache[1][j]
         _check_batch_size(pb)
-        t0, ph, pl = j0, self._delta_high, self._delta_low
+        h, w = self.header.ysize, self.header.xsize
+        s = h * w
+        t0, prev, flags = j0, None, None
         cc = self._chain_cache
         if cc is not None and cc[0] == bi and j0 <= cc[1] < j:
-            t0, ph, pl = cc[1] + 1, cc[2], cc[3]
+            t0, prev = cc[1] + 1, cc[2]
+        coded, oks = [], []
         with self._on_stream():
             for t in range(t0, j + 1):
                 with annotate("fpvt.read.chain"):
-                    ph, pl = self._decode_frame_planes(pb, t, ph, pl)
-            self._chain_cache = (bi, j, ph, pl)
+                    if flags is None:  # the batch's flags, once a request
+                        flags = upload(pb.frame_flags.astype(np.int32),
+                                       self._device)
+                    staged = plane_codec.stage_plane_ranges(
+                        [(n, st, t * s, (t + 1) * s)
+                         for n, st in (("high", pb.high), ("low", pb.low))
+                         if st is not None], self._device)
+                    high, low, _pv, names, ok = _decode_staged(
+                        staged, ("high", "low"), flags[t : t + 1],
+                        _flag_hints(pb.frame_flags[t : t + 1]), 1, h, w,
+                        self._delta_high, self._delta_low, prev)
+                    prev = (high[0], low[0])
+                    if ok is not None:
+                        coded += names
+                        oks.append(ok)
             with annotate("fpvt.read.download"):
-                return _to_u16(ph[None], pl[None])[0]
-
-    def _decode_frame_planes(
-        self, pb: fpvt.ParsedBatch, t: int, prev_high: torch.Tensor,
-        prev_low: torch.Tensor,
-    ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Frame ``t`` of a parsed batch -> its (high, low) [H, W] u8
-        planes, from the covering blocks only; ``prev_high``/``prev_low``
-        are frame t-1's planes (the delta planes for frame 0), which
-        F_USE_PREV adds."""
-        h, w = self.header.ysize, self.header.xsize
-        dev = self._device
-        flags = int(pb.frame_flags[t])
-        high, low = _decode_high_low(pb.high, pb.low, dev, t * h * w,
-                                     (t + 1) * h * w)
-        high = _inverse_spatial(
-            high.reshape(1, h, w), np.array([(flags >> F_SPATIAL_SHIFT) & 3])
-        )[0]
-        low = low.reshape(h, w)
-        if flags & F_USE_PREV:
-            return high + prev_high, low + prev_low
-        if flags & F_USE_DELTA:
-            return high + self._delta_high, low + self._delta_low
-        return high, low
+                frame = self._download_checked(
+                    to_int16(combine_planes(high, low)), coded,
+                    torch.cat(oks) if oks else None)
+                self._chain_cache = (bi, j, prev)
+                return frame.numpy().view(np.uint16)[0]
 
     def decode_batch_with_previews(
         self, index: int
     ) -> tuple[np.ndarray, np.ndarray]:
         """Decode batch ``index``'s frames and previews."""
-        return self._issue_batch(index, want_previews=True)()
+        return self._issue(index, want_previews=True)()
 
     def preview_frame(self, index: int) -> np.ndarray:
         """Preview of ONE frame by global frame index -> [H//4, W//4] u8.
@@ -1780,28 +1768,20 @@ class FpvtReader:
     def decode_previews(self, index: int) -> np.ndarray:
         """Decode batch ``index``'s previews -> [B, H//4, W//4] uint8,
         without touching its main planes."""
-        off, b = self._batches[index]
-        pb = self._parse_batch(off)
+        pb = self._parse_batch(self._batches[index][0])
+        st = pb.preview
         with self._on_stream():
-            res = (None if pb.preview is None else
-                   decode_plane_batch(pb.preview, self._device, "preview"))
-            return self._previews(res, pb.frame_flags, b).cpu().numpy()
-
-    def _previews(self, res, flags: np.ndarray, b: int) -> torch.Tensor:
-        """A batch's [B, H//4, W//4] u8 previews from its decoded preview
-        residuals ``res`` (None: the section has no preview stream)."""
-        ph, pw = self.header.ysize // 4, self.header.xsize // 4
-        if res is None:
-            if ph * pw == 0:
-                return torch.zeros((b, ph, pw), dtype=torch.uint8,
-                                   device=self._device)
-            raise ValueError("batch has no preview stream")
-        hints = _flag_hints(flags)
-        return _inverse_preview(
-            res.reshape(b, ph, pw), upload(flags.astype(np.int32),
-                                           self._device),
-            self._delta_high, hints["pv_any_up"], hints["pv_any_cg"],
-            hints["any_pv_delta"])
+            staged = plane_codec.stage_plane_ranges(
+                [] if st is None
+                else [("preview", st, 0, st.nframes * st.plane_size)],
+                self._device)
+            _h, _l, pv, coded, ok = _decode_staged(
+                staged, ("preview",),
+                upload(pb.frame_flags.astype(np.int32), self._device),
+                _flag_hints(pb.frame_flags), len(pb.frame_flags),
+                self.header.ysize, self.header.xsize, self._delta_high,
+                self._delta_low)
+            return self._download_checked(pv, coded, ok).numpy()
 
 
 class FpvtStreamingReader:
@@ -1825,10 +1805,10 @@ class FpvtStreamingReader:
         :meth:`decode` and the hook receives its ``finalize() -> (frames,
         previews or None)`` instead of the callback firing; the owner
         finalizes, on another thread, so batch n's download overlaps batch
-        n+1's upload and decode (FpvtReader._decode_parsed_batch_issue).
+        n+1's upload and decode (FpvtReader._issue).
 
         ``device_frames``: frames and previews stay on the device
-        (FpvtReader._decode_parsed_batch_issue).  ``upload_cache``: an
+        (FpvtReader._issue).  ``upload_cache``: an
         optional dict staging batch uploads on the device (FpvtReader),
         shared with any reader given the same dict; a staged section skips
         the parse and the upload.
@@ -1850,25 +1830,15 @@ class FpvtStreamingReader:
         self._pos = 0
         self._abs_base = 0  # stream offset of buffer position 0
 
-    def _deliver(self, fin, ts) -> None:
+    def _deliver(self, fin) -> None:
         if self._batch_hook is not None:
-            self._batch_hook(fin, ts)
+            self._batch_hook(fin, fin.timestamps)
             return
         imgs, pv = fin()
         if self._want_previews:
-            self._callback(imgs, ts, pv)
+            self._callback(imgs, fin.timestamps, pv)
         else:
-            self._callback(imgs, ts)
-
-    def _key(self, size: int):
-        """The upload-cache key of the ``size``-byte section at the buffer
-        position (its bytes are hashed in place)."""
-        hdr = self._inner.header
-        if self._content_id is None:
-            return _section_key(
-                memoryview(self._buffer)[self._pos : self._pos + size], hdr)
-        return ("cid", self._content_id, self._abs_base + self._pos,
-                hdr.ysize, hdr.xsize, hdr.chunk_log2)
+            self._callback(imgs, fin.timestamps)
 
     def decode(self, data: bytes) -> None:
         self._buffer += data
@@ -1885,36 +1855,23 @@ class FpvtStreamingReader:
             self._inner = inner
             self._pos = fpvt.HEADER_SIZE + dsize
             if inner.header.delta_is_frame0:
-                self._deliver(
-                    inner._frame0_issue(self._want_previews,
-                                        self._device_frames),
-                    np.full(1, -1, np.int64))
-        hh, ww = self._inner.header.ysize, self._inner.header.xsize
+                self._deliver(inner._frame0_issue(self._want_previews,
+                                                  self._device_frames))
+        hdr = self._inner.header
         while len(buf) - self._pos >= 9:
             size, stype = struct.unpack_from("<QB", buf, self._pos)
             if stype == fpvt.SECTION_INDEX:
                 break  # footer: end of frames
             if len(buf) - self._pos < size:
                 break  # incomplete section
-            key = None
-            if self._upload_cache is not None:
-                key = self._key(size)
-                hit = self._inner._staged_issue(key, self._want_previews,
-                                                self._device_frames)
-                if hit is not None:
-                    fin, _b, ts = hit
-                    self._deliver(fin, ts)
-                    self._pos += size
-                    continue
+            key = None  # default: a hash of the section's bytes
+            if self._upload_cache is not None and self._content_id is not None:
+                key = ("cid", self._content_id, self._abs_base + self._pos,
+                       hdr.ysize, hdr.xsize, hdr.chunk_log2)
             # parsed in place: every array the parse keeps is a copy
-            pb = fpvt.parse_batch_section(
-                buf, self._pos, plane_size=hh * ww,
-                preview_size=(hh // 4) * (ww // 4),
-            )
-            self._deliver(self._inner._decode_parsed_batch_issue(
-                pb, len(pb.frame_flags), self._want_previews,
-                self._device_frames, key,
-            ), pb.timestamps)
+            self._deliver(self._inner._issue(
+                (buf, self._pos), self._want_previews, self._device_frames,
+                key))
             self._pos += size
         # drop consumed bytes on every exit path, or a long stream's buffer
         # would keep everything decoded so far
@@ -2027,7 +1984,7 @@ def decode_file_fpvt(data: bytes, dtype=np.uint16, device="cuda") -> np.ndarray:
     start = 1 if r.header.delta_is_frame0 else 0
     pending = []
     for i, (_off, b) in enumerate(r._batches):
-        pending.append((r._issue_batch(i), out[start : start + b]))
+        pending.append((r._issue(i), out[start : start + b]))
         start += b
         if len(pending) == 2:
             fin, dst = pending.pop(0)

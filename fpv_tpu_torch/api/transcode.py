@@ -172,11 +172,10 @@ def transcode_to_fpv1(data: bytes, num_threads: int = 4,
 
     ts_dropped = False
     pending = []
-    for off, b in r._batches:
-        pb = r._parse_batch(off)
-        ts_dropped = ts_dropped or bool((pb.timestamps != -1).any())
-        pending.append(r._decode_parsed_batch_issue(pb, b,
-                                                    device_frames=True))
+    for bi in range(r.num_batches):
+        fin = r._issue(bi, device_frames=True)
+        ts_dropped = ts_dropped or bool((fin.timestamps != -1).any())
+        pending.append(fin)
         if len(pending) == 2:
             encode(pending.pop(0))
     for fin in pending:

@@ -62,7 +62,7 @@ def main(argv: list[str] | None = None) -> int:
         # backpressure instead of growing the heap
         pending = []
         for bi in range(r.num_batches):
-            pending.append(r._issue_batch(bi))
+            pending.append(r._issue(bi))
             if len(pending) == 2:
                 for frame in pending.pop(0)()[0]:
                     write(frame)

@@ -478,15 +478,13 @@ def stage_blocks(
 
 
 def launch_blocks(
-    staged: StagedBlocks, only=None
+    staged: StagedBlocks, only: list[int]
 ) -> tuple[list[torch.Tensor], torch.Tensor]:
-    """K2 on staged blocks in one launch (``only``: the job indices to
-    decode, default all) -> each job's flat u8 symbols
-    [(b1-b0+1) * K * lanes] (ctx16 nibbles moved back to the high nibble)
-    and a bool tensor [jobs] of their integrity checks, still on the
-    device: nothing waits for it."""
-    idx = range(len(staged.planes)) if only is None else only
-    planes = [staged.planes[i] for i in idx]
+    """K2 in one launch on the staged jobs numbered in ``only`` -> each
+    one's flat u8 symbols [(b1-b0+1) * K * lanes] (ctx16 nibbles moved
+    back to the high nibble) and a bool tensor [jobs] of their integrity
+    checks, still on the device: nothing waits for it."""
+    planes = [staged.planes[i] for i in only]
     decoded = rans_cuda.rans_decode_grouped(planes)
     ok = torch.stack([(o == 1).all() for _s, o in decoded])
     syms = [s.reshape(-1) << 4 if p.ctx_mode else s.reshape(-1)
@@ -500,57 +498,6 @@ def raise_if_bad(names: list[str], ok: list[bool]) -> None:
         if not good:
             what = f" ({name} plane)" if name else ""
             raise ValueError(f"rANS stream integrity check failed{what}")
-
-
-def decode_blocks_grouped(
-    jobs: list[tuple[str, PlaneStream, int, int]], device
-) -> list[torch.Tensor]:
-    """K2 on rANS blocks ``b0..b1`` (inclusive) of several coded streams,
-    ``jobs`` of (name, stream, b0, b1), in one launch -> each job's flat u8
-    symbols on ``device`` (:func:`stage_blocks`, :func:`launch_blocks`).
-    The ok flags are read once; a failed check raises ValueError naming
-    the plane."""
-    staged = stage_blocks(jobs, device)
-    syms, ok = launch_blocks(staged)
-    raise_if_bad(staged.names, ok.cpu().tolist())
-    return syms
-
-
-def decode_plane_ranges(
-    requests: list[tuple[str, PlaneStream, int, int]], device
-) -> list[torch.Tensor]:
-    """Symbols ``lo:hi`` of plane batches' flat streams, ``requests`` of
-    (name, stream, lo, hi) -> u8 [hi - lo] each on ``device``.  The coded
-    streams decode in one K2 launch, each from only the rANS blocks
-    covering its range (blocks are contiguous in the flat stream), so one
-    frame of a 1024-lane batch costs at most ceil(S / (K * 1024)) + 1
-    blocks per plane.  Raises ValueError when a rANS integrity check
-    fails."""
-    out, jobs, where = _split_ranges(requests, device)
-    if jobs:
-        for (i, a, n), flat in zip(where,
-                                   decode_blocks_grouped(jobs, device)):
-            out[i] = flat[a : a + n]
-    return out
-
-
-def _split_ranges(requests, device):
-    """CONST and RAW requests' symbols on ``device`` (the rest None), the
-    coded requests as block jobs, and where each job's symbols go: (request
-    index, offset into the job's symbols, count)."""
-    out: list[torch.Tensor | None] = [None] * len(requests)
-    jobs, where = [], []
-    for i, (name, st, lo, hi) in enumerate(requests):
-        if st.coding == CODING_CONST:
-            out[i] = torch.full((hi - lo,), st.value, dtype=torch.uint8,
-                                device=device)
-        elif st.coding == CODING_RAW:
-            out[i] = upload(st.raw_bytes[lo:hi], device)
-        else:
-            span = st.chunk_len * st.lanes
-            jobs.append((name, st, lo // span, (hi - 1) // span))
-            where.append((i, lo - lo // span * span, hi - lo))
-    return out, jobs, where
 
 
 class StagedRanges(NamedTuple):
@@ -567,18 +514,34 @@ class StagedRanges(NamedTuple):
 def stage_plane_ranges(
     requests: list[tuple[str, PlaneStream, int, int]], device
 ) -> StagedRanges:
-    """The staging half of :func:`decode_plane_ranges`: every upload, no
-    kernel, nothing waits for the device."""
-    out, jobs, where = _split_ranges(requests, device)
-    return StagedRanges([r[0] for r in requests], out,
+    """Stage symbols ``lo:hi`` of plane batches' flat streams, ``requests``
+    of (name, stream, lo, hi), for :func:`launch_plane_ranges`: CONST and
+    RAW requests' symbols go to ``device`` as they are, the coded ones as
+    the rANS blocks covering their range (blocks are contiguous in the flat
+    stream, so one frame of a 1024-lane batch costs at most
+    ceil(S / (K * 1024)) + 1 blocks a plane; :func:`stage_blocks`).  Every
+    upload, no kernel, nothing waits for the device."""
+    direct: list[torch.Tensor | None] = [None] * len(requests)
+    jobs, where = [], []
+    for i, (name, st, lo, hi) in enumerate(requests):
+        if st.coding == CODING_CONST:
+            direct[i] = torch.full((hi - lo,), st.value, dtype=torch.uint8,
+                                   device=device)
+        elif st.coding == CODING_RAW:
+            direct[i] = upload(st.raw_bytes[lo:hi], device)
+        else:
+            span = st.chunk_len * st.lanes
+            jobs.append((name, st, lo // span, (hi - 1) // span))
+            where.append((i, lo - lo // span * span, hi - lo))
+    return StagedRanges([r[0] for r in requests], direct,
                         stage_blocks(jobs, device) if jobs else None, where)
 
 
 def launch_plane_ranges(
     staged: StagedRanges, names
 ) -> tuple[dict[str, torch.Tensor], list[str], torch.Tensor | None]:
-    """The launch half of :func:`decode_plane_ranges`, for the requests
-    named in ``names``: their u8 symbols by name, the names of the coded
+    """K2 on the staged requests named in ``names`` (names not staged are
+    left out) -> their u8 symbols by name, the names of the coded
     ones and a bool tensor of those's integrity checks (None when none is
     coded), from one K2 launch.  Nothing waits for the device: the caller
     reads the checks (:func:`raise_if_bad`)."""
@@ -594,6 +557,22 @@ def launch_plane_ranges(
         i, a, n = staged.where[j]
         out[staged.names[i]] = flat[a : a + n]
     return out, [staged.blocks.names[j] for j in jobs], ok
+
+
+def decode_plane_ranges(
+    requests: list[tuple[str, PlaneStream, int, int]], device
+) -> list[torch.Tensor]:
+    """Symbols ``lo:hi`` of plane batches' flat streams, ``requests`` of
+    (name, stream, lo, hi) with distinct names -> u8 [hi - lo] each on
+    ``device``: :func:`stage_plane_ranges`, :func:`launch_plane_ranges`
+    (one K2 launch), then :func:`raise_if_bad` on the integrity checks (a
+    failed one raises ValueError naming the plane)."""
+    names = [r[0] for r in requests]
+    out, coded, ok = launch_plane_ranges(stage_plane_ranges(requests, device),
+                                         names)
+    if ok is not None:
+        raise_if_bad(coded, ok.cpu().tolist())
+    return [out[n] for n in names]
 
 
 def decode_plane_batch(

@@ -31,10 +31,11 @@ import torch.distributed as dist
 from fpv_tpu_torch.api.fpvt_codec import (
     FpvtReader,
     FpvtWriter,
-    _apply_temporal,
+    _decode_plane,
+    _decode_staged,
+    _flag_hints,
     _fused_decodable,
     _frame_rows,
-    _inverse_spatial,
     _mags,
     _mask_of_ranges,
     _pack_flags,
@@ -50,6 +51,7 @@ from fpv_tpu_torch.api.fpvt_codec import (
     put_frames,
     section_rows_need,
 )
+from fpv_tpu_torch.entropy import plane_codec
 from fpv_tpu_torch.entropy.plane_codec import (
     _hist_flat,
     _to_block_symbols,
@@ -597,27 +599,22 @@ def _shard_roundtrip(s: dict, tables, b: int, h: int, w: int, k: int,
                                          encode_tables_device(freq)))
         dec.append((lens, fused_decode_tables_device(freq)))
     coded = rans_cuda.rans_encode_grouped(enc)
-    decoded = rans_cuda.rans_decode_grouped([
-        rans_cuda.DecodePlane(
-            counts, torch.cumsum(counts.long(), 0) - counts.long(), states,
-            lens, table, rans_cuda.staged_payload(payload), k)
-        for (states, counts, payload), (lens, table) in zip(coded, dec)])
-    rec = {n: out.reshape(-1)[: b * n_sym] for (n, _p, n_sym), (out, _o)
-           in zip(s["planes"], decoded)}
-    oks = [(o == 1).all() for _s, o in decoded]
-    m = s["m"]
-    flags = _pack_flags(m)
-    high = _inverse_spatial(rec["high"].reshape(b, h, w),
-                            (flags >> fpvt.F_SPATIAL_SHIFT) & 3)
-    high, low = _apply_temporal(high, rec["low"].reshape(b, h, w),
-                                upload(flags.astype(np.int32), dev),
-                                s["dh"], s["dl"],
-                                bool((flags & fpvt.F_USE_PREV).any()))
+    names = [n for n, _p, _s in s["planes"]]
+    jobs = [_decode_plane(counts, 0, states, lens, k, table,
+                          rans_cuda.staged_payload(payload), False)
+            for (states, counts, payload), (lens, table) in zip(coded, dec)]
+    staged = plane_codec.StagedRanges(
+        names, [None] * len(jobs), plane_codec.StagedBlocks(names, jobs),
+        [(i, 0, b * n_sym) for i, (_n, _p, n_sym) in enumerate(s["planes"])])
+    flags = _pack_flags(s["m"])
+    high, low, pv, _coded, ok = _decode_staged(
+        staged, names, upload(flags.astype(np.int32), dev),
+        _flag_hints(flags), b, h, w, s["dh"], s["dl"])
     out = combine_planes(high, low)
-    if "preview" in rec:
-        oks.append(torch.equal(rec["preview"], m["preview"].reshape(-1)))
-    want = combine_planes(*split_planes(s["x"], shift, big_endian)[:2])
-    oks.append(torch.equal(out, want))
+    want_high, want_low = split_planes(s["x"], shift, big_endian)[:2]
+    oks = [ok.all(), torch.equal(out, combine_planes(want_high, want_low))]
+    if pv is not None:
+        oks.append(torch.equal(pv, generate_preview(want_high)))
     ok = all(bool(o) for o in oks)
     return to_int16(out).cpu().numpy().view(np.uint16), ok
 
@@ -864,25 +861,22 @@ def sharded_decode_file(data: bytes, mesh: Mesh, want_previews: bool = False):
     pend = None
     for n, items in units:
         with annotate("mesh.compute"):
-            fins = [r._decode_parsed_batch_issue(pb, n, want_previews)
+            fins = [r._issue(pb, want_previews)
                     for r, (_bi, pb) in zip(readers, items)]
         if pend is not None:
             finalize(pend)
         pend = (fins, items)
     if pend is not None:
         finalize(pend)
-    for bi, pb, n in leftovers:
-        results[bi], results_pv[bi] = rdr._decode_parsed_batch(
-            pb, n, want_previews)
+    for bi, pb, _n in leftovers:
+        results[bi], results_pv[bi] = rdr._issue(pb, want_previews)()
     order = range(len(rdr._batches))
     out = [results[bi] for bi in order]
     pv_out = [results_pv[bi] for bi in order] if want_previews else []
     if rdr.header.delta_is_frame0:
         out.insert(0, rdr.frame0()[None])
         if want_previews:
-            with rdr._on_stream():
-                pv_out.insert(0, generate_preview(
-                    rdr._delta_high[None]).cpu().numpy())
+            pv_out.insert(0, rdr.preview_frame(0)[None])
     frames = np.concatenate(out) if out else np.zeros((0, h, w), np.uint16)
     if not want_previews:
         return frames

@@ -114,7 +114,7 @@ def run(size: int, frames: int, chunks: list[int], reps: int,
         arrays, static = batch_decode_args(
             rdr._parse_batch(rdr._batches[0][0]), 1 << cl)
         args = [torch.from_numpy(arrays[n]).to(dev) for n in DECODE_ARGS]
-        args[7:7] = [rdr._delta_high, rdr._delta_low]
+        args[7:7] = [wr._delta_high, wr._delta_low]
 
         def _dec(pv, _args=args, _k=1 << cl, _static=static):
             return fused_decode_batch(*_args, chunk_len=_k, b=b, h=h, w=w,

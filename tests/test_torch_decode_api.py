@@ -360,11 +360,15 @@ def test_sharded_fused_decode_two_cpu_shards(files, previews):
         _eq(g, r)
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_temporal_inverse_equals_jax(seed):
+@pytest.mark.parametrize("seed,chain", [
+    pytest.param(seed, chain, id=f"{seed}-chain" if chain else str(seed))
+    for chain in (False, True) for seed in (0, 1, 2)])
+def test_temporal_inverse_equals_jax(seed, chain):
     """The temporal inverse (one segmented prefix sum over the batch) equals
     JAX's ``_apply_temporal_and_combine`` (a scan over frames) on random
-    residuals and random static-delta / prev-frame flags."""
+    residuals and random static-delta / prev-frame flags; so does a walk
+    of batches of one, each given the frame before as ``prev``, as
+    ``decode_frame`` walks a prev chain."""
     from fpv_tpu_torch.format.fpvt import F_USE_DELTA, F_USE_PREV
     from fpv_tpu_torch.ops.planes import combine_planes
 
@@ -380,7 +384,16 @@ def test_temporal_inverse_equals_jax(seed):
         jnp.asarray(hi), jnp.asarray(lo), jnp.asarray((flags & F_USE_DELTA) != 0),
         jnp.asarray((flags & F_USE_PREV) != 0), jnp.asarray(dh),
         jnp.asarray(dl), any_prev=any_prev)
-    got = tcodec._apply_temporal(
-        torch.from_numpy(hi), torch.from_numpy(lo), torch.from_numpy(flags),
-        torch.from_numpy(dh), torch.from_numpy(dl), any_prev)
+    args = [torch.from_numpy(a) for a in (hi, lo, flags, dh, dl)]
+    if not chain:
+        got = tcodec._apply_temporal(*args, any_prev)
+    else:
+        planes, prev = [], None
+        for t in range(b):
+            one = tcodec._apply_temporal(
+                args[0][t : t + 1], args[1][t : t + 1], args[2][t : t + 1],
+                args[3], args[4], bool(flags[t] & F_USE_PREV), prev)
+            planes.append(one)
+            prev = (one[0][0], one[1][0])
+        got = [torch.cat([p[i] for p in planes]) for i in (0, 1)]
     _eq(combine_planes(*got), ref)

@@ -179,18 +179,57 @@ def test_decode_frame_reads_only_covering_blocks(wide_file, monkeypatch):
     plane, not the batch's ten, and decodes the frame's high and low
     blocks in one grouped call."""
     seen = []
-    real = tpc.decode_blocks_grouped
+    real = tpc.stage_blocks
 
     def spy(jobs, device):
         seen.append([(name, b0, b1) for name, _st, b0, b1 in jobs])
         return real(jobs, device)
 
-    monkeypatch.setattr(tpc, "decode_blocks_grouped", spy)
+    monkeypatch.setattr(tpc, "stage_blocks", spy)
     r = fpv_tpu_torch.FpvtReader(wide_file[0], device="cpu")
     seen.clear()  # the delta section's planes
     np.testing.assert_array_equal(r.decode_frame(1), wide_file[1][1])
     assert seen and all(b1 - b0 <= 2 for call in seen for _n, b0, b1 in call)
     assert all([n for n, _b0, _b1 in call] == ["high", "low"] for call in seen)
+
+
+@pytest.mark.parametrize("plane", ["high", "low", "preview"])
+def test_flipped_payload_word_raises_as_the_batch_does(wide_file, plane):
+    """A payload word flipped inside the rANS block where a chain frame
+    starts makes ``decode_frame`` of that frame raise the ValueError
+    (naming the plane) that ``decode_batch`` of its batch raises; a
+    flipped preview word makes ``decode_previews`` raise as
+    ``decode_batch_with_previews`` does."""
+    from fpv_tpu_torch.ops.rans_layout import num_segments
+
+    data = wide_file[0]
+    r = fpv_tpu_torch.FpvtReader(data, device="cpu")
+    index = 6
+    bi, j = r._frame_to_batch[index]
+    pb = r._parse_batch(r._batches[bi][0])
+    assert j and pb.frame_flags[j] & tfpvt.F_USE_PREV  # a chain to walk
+    st = getattr(pb, plane)
+    assert st.coding not in (CODING_CONST, CODING_RAW)
+    assert st.lanes == BLOCK_LANES
+    b0 = (0 if plane == "preview"
+          else j * st.plane_size // (st.chunk_len * st.lanes))
+    nseg = num_segments(st.chunk_len)
+    cum = np.concatenate([[0], np.cumsum(st.block_counts.astype(np.int64))])
+    word = (cum[b0 * nseg] + cum[(b0 + 1) * nseg]) // 2
+    pos = data.index(st.payload.tobytes()) + 2 * int(word)
+    bad = bytearray(data)
+    bad[pos : pos + 2] = bytes(x ^ 0x5A for x in bad[pos : pos + 2])
+    whole, one = ((tcodec.FpvtReader.decode_batch_with_previews,
+                   tcodec.FpvtReader.decode_previews) if plane == "preview"
+                  else (tcodec.FpvtReader.decode_batch,
+                        lambda rd, _bi: rd.decode_frame(index)))
+    errors = []
+    for fn in (whole, one):
+        with pytest.raises(ValueError,
+                           match=rf"integrity.*\({plane} plane\)") as e:
+            fn(fpv_tpu_torch.FpvtReader(bytes(bad), device="cpu"), bi)
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
 
 
 @pytest.mark.parametrize("name", ["drift-prev", "plasma-ctx16", "tiny-3x3",
@@ -331,7 +370,7 @@ def test_reader_rejects_oversize_device_batch(files):
                            timestamps=np.full(1, -1, np.int64), high=big,
                            low=big, preview=None)
     with pytest.raises(ValueError, match="2\\^31 symbols"):
-        r._decode_parsed_batch(pb, 1)
+        r._issue(pb)
 
 
 # malformed input: the JAX suite's tests (tests/test_fpvt.py) on the port,

@@ -361,7 +361,9 @@ def test_upload_cache_hit_skips_parse_and_upload(monkeypatch, content_id):
         assert sorted(cache) == [("cid", content_id, off, 32, 32, 8)
                                  for off in offsets]
     parses = _count_calls(monkeypatch, tfpvt, "parse_batch_section")
-    stages = _count_calls(monkeypatch, tpc, "stage_plane_ranges")
+    # a batch's staging (the delta section, staged at each stream's open
+    # through the same plane_codec route, is no batch)
+    stages = _count_calls(monkeypatch, tcodec.FpvtReader, "_stage")
     got = _decode_hub(data, cache, {"b": content_id, "c": content_id})
     assert (len(cache), parses, stages) == (len(offsets), [], [])
     for sid in ("b", "c"):
