@@ -599,8 +599,8 @@ def check_reader(data: bytes, out: np.ndarray, dev) -> dict:
     r = FpvtReader(data, device=dev)
     row = {}
     # frame 0 (the delta frame), a batch's first frame, a mid-chain frame
-    # (index 7 of a batch) and the last frame; each frame of a chain is one
-    # K2 launch for its high and low planes together
+    # (index 7 of a batch) and the last frame; each request's whole prev
+    # chain is one K2 launch for its high and low planes together
     for i in (0, 1 + FPB, 1 + FPB + 7, N_FRAMES - 1):
         before = kernels.LAUNCHES["rans_decode"]
         torch.cuda.synchronize()
@@ -612,9 +612,10 @@ def check_reader(data: bytes, out: np.ndarray, dev) -> dict:
             kernels.LAUNCHES["rans_decode"] - before)
         if not np.array_equal(got, out[i]):
             raise AssertionError(f"decode_frame({i}) != full decode")
-    if row[f"decode_frame_{1 + FPB}_k2_launches"] != 1:
-        raise AssertionError("an anchor frame's planes took more than one "
-                             "K2 launch")
+    if any(row[f"decode_frame_{i}_k2_launches"] != 1
+           for i in (1 + FPB, 1 + FPB + 7, N_FRAMES - 1)):
+        raise AssertionError("a frame's prev chain took other than one K2 "
+                             "launch")
     t0 = time.perf_counter()
     r.decode_batch(1)
     torch.cuda.synchronize()

@@ -28,8 +28,9 @@ ranges while a profiler records, beside the kernels they launch):
 ``fpvt.write.join`` per file; ``fpvt.read.open`` per reader,
 ``fpvt.read.parse`` per batch section parsed, ``stage``, ``dispatch`` and
 ``finalize`` per batch decoded, ``assemble`` per ``decode_file_fpvt``, and
-in ``decode_frame`` ``fpvt.read.chain`` per prev-chain frame walked and
-``fpvt.read.download`` for the answer.
+in ``decode_frame`` ``fpvt.read.chain`` around the one staging and K2
+launch of the prev chain walked and ``fpvt.read.download`` for the
+answer.
 """
 
 from __future__ import annotations
@@ -865,7 +866,8 @@ def _apply_temporal(high, low, flags: torch.Tensor, delta_high, delta_low,
     F_USE_PREV, a mod-256 running sum over frames (frame t adds frame
     t-1's planes), two elementwise launches a frame and plane.  ``prev``:
     the (high, low) [H, W] planes before frame 0, default the delta
-    planes (a chain frame is a batch of one after the chain's planes).
+    planes (a prev chain decoded from past its anchor follows the planes
+    of the frame before it).
     Without delta planes (None: the delta section itself) nothing is
     added."""
     if delta_high is None:
@@ -894,7 +896,7 @@ def _decode_staged(
     hints: dict, b: int, h: int, w: int, delta_high, delta_low, prev=None,
 ):
     """The one decode core, from staged plane streams to planes, shared by
-    every reader path (batches, chain frames, previews, the delta section)
+    every reader path (batches, prev chains, previews, the delta section)
     and the module-level decode API: one K2 launch for the staged coded
     planes among ``names`` (of "high", "low" and "preview"), then the
     inverse predictions (K3 on CG2D frames and previews), the temporal add
@@ -1690,10 +1692,13 @@ class FpvtReader:
 
         Serves from the batch cache when its batch was decoded last;
         otherwise, for 1024-lane streams, decodes only the rANS blocks
-        covering the frame, walking a prev-frame chain back to its anchor
-        (the writer bounds chains to PREV_ANCHOR - 1 frames): each chain
-        frame is a batch of one through :func:`_decode_staged`, one K2
-        launch each, and the integrity checks are read once, with the
+        covering the frame's prev-frame chain, from its anchor (the writer
+        bounds chains to PREV_ANCHOR - 1 frames) or from the last frame
+        decoded when that one is earlier in the same chain: the chain's
+        frames are one symbol range a plane, staged once (the union of
+        their covering blocks, each block once) and run through
+        :func:`_decode_staged` as one batch, one K2 launch for the high
+        and low blocks, and the integrity checks are read once, with the
         answer.  A narrow stream is one block (NARROW_MAX_K * lanes covers
         a whole narrow batch), and a chain beyond 2 * PREV_ANCHOR frames
         costs more than its batch: both decode the whole batch and cache
@@ -1718,34 +1723,26 @@ class FpvtReader:
         _check_batch_size(pb)
         h, w = self.header.ysize, self.header.xsize
         s = h * w
-        t0, prev, flags = j0, None, None
+        t0, prev = j0, None
         cc = self._chain_cache
         if cc is not None and cc[0] == bi and j0 <= cc[1] < j:
             t0, prev = cc[1] + 1, cc[2]
-        coded, oks = [], []
         with self._on_stream():
-            for t in range(t0, j + 1):
-                with annotate("fpvt.read.chain"):
-                    if flags is None:  # the batch's flags, once a request
-                        flags = upload(pb.frame_flags.astype(np.int32),
-                                       self._device)
-                    staged = plane_codec.stage_plane_ranges(
-                        [(n, st, t * s, (t + 1) * s)
-                         for n, st in (("high", pb.high), ("low", pb.low))
-                         if st is not None], self._device)
-                    high, low, _pv, names, ok = _decode_staged(
-                        staged, ("high", "low"), flags[t : t + 1],
-                        _flag_hints(pb.frame_flags[t : t + 1]), 1, h, w,
-                        self._delta_high, self._delta_low, prev)
-                    prev = (high[0], low[0])
-                    if ok is not None:
-                        coded += names
-                        oks.append(ok)
+            with annotate("fpvt.read.chain"):
+                flags = pb.frame_flags[t0 : j + 1]
+                staged = plane_codec.stage_plane_ranges(
+                    [(n, st, t0 * s, (j + 1) * s)
+                     for n, st in (("high", pb.high), ("low", pb.low))
+                     if st is not None], self._device)
+                high, low, _pv, coded, ok = _decode_staged(
+                    staged, ("high", "low"),
+                    upload(flags.astype(np.int32), self._device),
+                    _flag_hints(flags), len(flags), h, w, self._delta_high,
+                    self._delta_low, prev)
             with annotate("fpvt.read.download"):
                 frame = self._download_checked(
-                    to_int16(combine_planes(high, low)), coded,
-                    torch.cat(oks) if oks else None)
-                self._chain_cache = (bi, j, prev)
+                    to_int16(combine_planes(high[-1:], low[-1:])), coded, ok)
+                self._chain_cache = (bi, j, (high[-1], low[-1]))
                 return frame.numpy().view(np.uint16)[0]
 
     def decode_batch_with_previews(

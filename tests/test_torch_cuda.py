@@ -300,7 +300,8 @@ def test_file_bytes_same_on_cuda_and_cpu(cuda, shift, bits):
 def test_decode_frame_on_card_equals_full_decode(cuda):
     """Random access on the card: a wide file (frames spanning several
     rANS blocks, prev chains) decoded frame by frame equals its whole
-    decode, and launches K2 on sub-ranges of blocks."""
+    decode, with one K2 launch for each request's whole chain (none for
+    frame 0, the delta frame)."""
     from fpv_tpu_torch.utils import kernels
 
     frames = testdata.plasma_frames(10, 128, 160, bits=12, seed=4)
@@ -312,9 +313,10 @@ def test_decode_frame_on_card_equals_full_decode(cuda):
     np.testing.assert_array_equal(want, frames << 4)
     r = fpv_tpu_torch.FpvtReader(data, device=cuda)
     kernels.reset_launches()
-    for i in (9, 1, 5, 0, 8):
+    for i in (9, 1, 5, 0, 8, 3):
+        before = kernels.LAUNCHES["rans_decode"]
         np.testing.assert_array_equal(r.decode_frame(i), want[i])
-    assert kernels.LAUNCHES["rans_decode"] > 0
+        assert kernels.LAUNCHES["rans_decode"] - before == (i != 0), i
 
 
 def _hub_streams():

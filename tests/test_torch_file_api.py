@@ -174,23 +174,88 @@ def test_decode_frame_equals_jax_decode(files, wide_file, name):
     assert prev_mid or name == "plasma-ctx16"
 
 
-def test_decode_frame_reads_only_covering_blocks(wide_file, monkeypatch):
-    """Random access on the wide file decodes at most three blocks per
-    plane, not the batch's ten, and decodes the frame's high and low
-    blocks in one grouped call."""
+def _spy(monkeypatch, name):
+    """Record the calls to plane_codec's ``name`` (``stage_blocks``'s jobs
+    as (name, b0, b1), ``launch_blocks``' as the jobs launched)."""
     seen = []
-    real = tpc.stage_blocks
+    real = getattr(tpc, name)
 
-    def spy(jobs, device):
-        seen.append([(name, b0, b1) for name, _st, b0, b1 in jobs])
-        return real(jobs, device)
+    def spy(jobs, arg):
+        seen.append([(n, b0, b1) for n, _st, b0, b1 in jobs]
+                    if name == "stage_blocks" else list(arg))
+        return real(jobs, arg)
 
-    monkeypatch.setattr(tpc, "stage_blocks", spy)
-    r = fpv_tpu_torch.FpvtReader(wide_file[0], device="cpu")
-    seen.clear()  # the delta section's planes
-    np.testing.assert_array_equal(r.decode_frame(1), wide_file[1][1])
-    assert seen and all(b1 - b0 <= 2 for call in seen for _n, b0, b1 in call)
-    assert all([n for n, _b0, _b1 in call] == ["high", "low"] for call in seen)
+    monkeypatch.setattr(tpc, name, spy)
+    return seen
+
+
+def _chain_start(r, index):
+    """(batch, first frame decoded, frame) of ``decode_frame(index)`` on
+    reader ``r`` as it stands: the prev chain's anchor, or the frame after
+    the chain cache's when that one is earlier in the same chain."""
+    bi, j = r._frame_to_batch[index]
+    flags = r._parse_batch(r._batches[bi][0]).frame_flags
+    j0 = j
+    while j0 > 0 and flags[j0] & tfpvt.F_USE_PREV:
+        j0 -= 1
+    cc = r._chain_cache
+    if cc is not None and cc[0] == bi and j0 <= cc[1] < j:
+        return bi, cc[1] + 1, j
+    return bi, j0, j
+
+
+def test_decode_frame_reads_only_covering_blocks(wide_file, monkeypatch):
+    """Each random access on the wide file stages its whole prev chain
+    once: one staging call, high and low together, whose blocks a plane
+    are exactly the union of the chain frames' covering blocks (each
+    block once), not the batch's ten."""
+    data, want = wide_file
+    seen = _spy(monkeypatch, "stage_blocks")
+    r = fpv_tpu_torch.FpvtReader(data, device="cpu")
+    s = r.header.ysize * r.header.xsize
+    walked = 0
+    for i in list(range(1, r.numframes)) + [5, 2, 7]:
+        bi, t0, j = _chain_start(r, i)
+        seen.clear()  # the delta section's planes, the last request's
+        np.testing.assert_array_equal(r.decode_frame(i), want[i], str(i))
+        pb = r._parse_batch(r._batches[bi][0])
+        span = pb.high.chunk_len * pb.high.lanes
+        cover = (t0 * s // span, ((j + 1) * s - 1) // span)
+        assert seen == [[("high", *cover), ("low", *cover)]], (i, seen)
+        assert cover[1] - cover[0] < pb.high.num_blocks
+        walked += j - t0
+    assert walked  # some request walked a chain of several frames
+
+
+@pytest.mark.parametrize("order", ["forward", "reverse", "continue"])
+def test_decode_frame_one_launch_per_chain(wide_file, monkeypatch, order):
+    """Every frame of the wide file decodes with one staging call and one
+    K2 launch (``launch_blocks``) for its whole prev chain, high and low
+    planes together: in forward order (each request continues the chain
+    cache), in reverse order (each walks from the anchor), and for a
+    request that continues the chain cache from a frame past the anchor.
+    Frame 0, the delta frame, launches nothing."""
+    data, want = wide_file
+    staged = _spy(monkeypatch, "stage_blocks")
+    launched = _spy(monkeypatch, "launch_blocks")
+    r = fpv_tpu_torch.FpvtReader(data, device="cpu")
+    n = r.numframes
+    frames = {"forward": list(range(n)), "reverse": list(range(n))[::-1],
+              "continue": [2, 6]}[order]
+    starts = []
+    for i in frames:
+        _bi, t0, j = _chain_start(r, i)
+        staged.clear()
+        launched.clear()
+        np.testing.assert_array_equal(r.decode_frame(i), want[i], str(i))
+        calls = 0 if r._frame_to_batch[i][0] == -1 else 1
+        assert (len(staged), len(launched)) == (calls, calls), i
+        assert all(jobs == [0, 1] for jobs in launched), launched
+        starts.append(t0)
+    if order == "continue":
+        # frame 6 (batch frame 5) continues frame 2's chain (batch frames
+        # 0..1): it decodes batch frames 2..5 alone
+        assert starts == [0, 2]
 
 
 @pytest.mark.parametrize("plane", ["high", "low", "preview"])
