@@ -1792,6 +1792,7 @@ class FpvtStreamingReader:
         self, callback, want_previews: bool = False, batch_hook=None,
         device="cuda", device_frames: bool = False,
         upload_cache: dict | None = None, content_id=None,
+        buffer: np.ndarray | None = None,
     ) -> None:
         """``callback(frames u16 [B, H, W], timestamps i64 [B])`` per batch;
         with ``want_previews`` it receives a third argument, the
@@ -1814,7 +1815,11 @@ class FpvtStreamingReader:
         With an upload cache, sections are then keyed by (content_id,
         absolute byte offset) instead of a hash of their bytes; the caller
         guarantees that one id names identical bytes (two different
-        streams fed under one id decode the first one's staged batches)."""
+        streams fed under one id decode the first one's staged batches).
+
+        ``buffer``: a u8 numpy array to hold the bytes fed, such as a
+        finished reader's :attr:`buffer` (its contents are overwritten), so
+        that a server of stream after stream allocates its buffers once."""
         self._callback = callback
         self._want_previews = want_previews
         self._batch_hook = batch_hook
@@ -1822,10 +1827,16 @@ class FpvtStreamingReader:
         self._device_frames = device_frames
         self._upload_cache = upload_cache
         self._content_id = content_id
-        self._buffer = bytearray()
+        # the bytes fed and not yet dropped are buffer[:_end], doubled
+        # when full and compacted in place; sections parse into read-only
+        # views of it (fpvt.parse_batch_section), which die once _issue has
+        # staged them, before any later feed overwrites their bytes
+        self.buffer = np.empty(0, np.uint8) if buffer is None else buffer
+        self._end = 0
         self._inner: FpvtReader | None = None
         self._pos = 0
         self._abs_base = 0  # stream offset of buffer position 0
+        self.complete = False  # the footer (index section) has arrived
 
     def _deliver(self, fin) -> None:
         if self._batch_hook is not None:
@@ -1838,8 +1849,15 @@ class FpvtStreamingReader:
             self._callback(imgs, fin.timestamps)
 
     def decode(self, data: bytes) -> None:
-        self._buffer += data
-        buf = self._buffer
+        data = np.frombuffer(data, np.uint8)
+        end = self._end + len(data)
+        if end > len(self.buffer):
+            grown = np.empty(max(end, 2 * len(self.buffer)), np.uint8)
+            grown[: self._end] = self.buffer[: self._end]
+            self.buffer = grown
+        self.buffer[self._end : end] = data
+        self._end = end
+        buf = memoryview(self.buffer)[:end].toreadonly()
         if self._inner is None:
             if len(buf) < fpvt.HEADER_SIZE + 9:
                 return
@@ -1858,6 +1876,7 @@ class FpvtStreamingReader:
         while len(buf) - self._pos >= 9:
             size, stype = struct.unpack_from("<QB", buf, self._pos)
             if stype == fpvt.SECTION_INDEX:
+                self.complete = True
                 break  # footer: end of frames
             if len(buf) - self._pos < size:
                 break  # incomplete section
@@ -1865,7 +1884,7 @@ class FpvtStreamingReader:
             if self._upload_cache is not None and self._content_id is not None:
                 key = ("cid", self._content_id, self._abs_base + self._pos,
                        hdr.ysize, hdr.xsize, hdr.chunk_log2)
-            # parsed in place: every array the parse keeps is a copy
+            # parsed into views of the buffer, staged before _issue returns
             self._deliver(self._inner._issue(
                 (buf, self._pos), self._want_previews, self._device_frames,
                 key))
@@ -1874,8 +1893,14 @@ class FpvtStreamingReader:
         # would keep everything decoded so far
         if self._pos > 1 << 22:
             self._abs_base += self._pos
-            del self._buffer[: self._pos]
+            self._end -= self._pos
+            self.buffer[: self._end] = self.buffer[self._pos : end]
             self._pos = 0
+
+    def pending_bytes(self) -> int:
+        """Bytes fed that no decoded section holds: an incomplete header or
+        section, or the footer once it arrived (:attr:`complete`)."""
+        return self._end - self._pos
 
 
 def file_encode_setup(

@@ -159,9 +159,18 @@ def _pad8(n: int) -> int:
 
 
 # plane streams parsed (coded and CODING_RAW), by whether their arrays are
-# read-only views of an immutable ``bytes`` input or copies of a mutable
-# one (a bytearray, a memoryview)
+# read-only views of a read-only input or copies of a writable one
+# (:func:`_viewable`)
 PARSED_STREAMS = {"view": 0, "copy": 0}
+
+
+def _viewable(data) -> bool:
+    """Whether a parse of ``data`` keeps views of it: ``bytes``, or a
+    read-only memoryview, whose owner keeps its bytes unchanged while the
+    parse's arrays live (the streaming reader's buffer, until the section
+    is staged).  A writable buffer's bytes may change or move: copies."""
+    return isinstance(data, bytes) or (isinstance(data, memoryview)
+                                       and data.readonly)
 
 
 def _need(data, pos: int, n: int) -> None:
@@ -236,10 +245,10 @@ def plane_stream_accounting(ps: PlaneStream) -> dict:
 
 
 def _array(data, dtype, count: int, offset: int) -> np.ndarray:
-    """``count`` items of ``dtype`` at ``offset``: a read-only view of
-    ``bytes``, else a copy."""
+    """``count`` items of ``dtype`` at ``offset``: a read-only view of a
+    read-only ``data``, else a copy (:func:`_viewable`)."""
     a = np.frombuffer(data, dtype=dtype, count=count, offset=offset)
-    return a if isinstance(data, bytes) else a.copy()
+    return a if _viewable(data) else a.copy()
 
 
 def parse_plane_stream(
@@ -252,10 +261,11 @@ def parse_plane_stream(
     streams carry no payload to cross-check against, so this is their only
     size bound).
 
-    From ``bytes`` the stream's arrays (payload, states, block counts,
-    order-0 table) are read-only views of ``data``, which they keep alive;
-    from a mutable buffer, whose bytes may change or move, they are
-    copies (:data:`PARSED_STREAMS` counts both)."""
+    From ``bytes`` or a read-only memoryview the stream's arrays (payload,
+    states, block counts, order-0 table) are read-only views of ``data``,
+    which they keep alive; from a writable buffer, whose bytes may change
+    or move, they are copies (:func:`_viewable`; :data:`PARSED_STREAMS`
+    counts both)."""
     _need(data, pos, 24)
     (size,) = struct.unpack_from("<I", data, pos)
     end = pos + size
@@ -276,7 +286,7 @@ def parse_plane_stream(
         if cval > 255:
             raise ValueError("invalid constant plane value")
         return const_plane_stream(nframes, plane_size, chunk_len, cval), end
-    views = isinstance(data, bytes)
+    views = _viewable(data)
     if coding == CODING_RAW:
         n = nframes * plane_size
         _need(data, p, n)
@@ -386,9 +396,10 @@ def serialize_batch_section(
 
 @dataclasses.dataclass
 class ParsedBatch:
-    """A parsed batch section.  Parsed from ``bytes``, its arrays (frame
-    flags, timestamps and the plane streams') are read-only views of those
-    bytes and keep the whole buffer alive while the batch lives."""
+    """A parsed batch section.  Parsed from ``bytes`` (or a read-only
+    memoryview), its arrays (frame flags, timestamps and the plane
+    streams') are read-only views of those bytes and keep the whole buffer
+    alive while the batch lives."""
 
     frame_flags: np.ndarray
     timestamps: np.ndarray
@@ -425,9 +436,10 @@ def parse_batch_section(
 ) -> ParsedBatch:
     """``plane_size`` / ``preview_size``: expected bytes per frame plane
     (header ysize*xsize and (ysize//4)*(xsize//4)); readers pass them so
-    crafted size fields are rejected at parse time.  From ``bytes`` the
-    batch's arrays are read-only views of ``data`` (which they keep alive,
-    :class:`ParsedBatch`); from a mutable buffer they are copies
+    crafted size fields are rejected at parse time.  From ``bytes`` or a
+    read-only memoryview the batch's arrays are read-only views of
+    ``data`` (which they keep alive, :class:`ParsedBatch`); from a
+    writable buffer they are copies
     (:func:`parse_plane_stream`)."""
     _need(data, pos, 17)
     size, stype = struct.unpack_from("<QB", data, pos)

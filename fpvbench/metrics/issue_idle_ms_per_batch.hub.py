@@ -1,0 +1,15 @@
+"""Milliseconds a batch of the hub's issue workers waiting on empty input
+queues, summed over the workers: the client (its chunking, its copy of
+each chunk) sets the pace.  Read from the hub's counter ``issue_idle_s``
+(``MultiStreamDecoder.stats``; ``hub.issue_idle_s`` in the entry's counts)
+over the batches handed to the finalize worker in the same span
+(``hub.batches``, each stream's frame 0 included).  A counter, not a span:
+the hub's workers run on threads of their own, which the benchmark's
+profiler does not record."""
+
+
+def read(reading):
+    batches = reading.counts.get("hub.batches", 0)
+    if not batches or "hub.issue_idle_s" not in reading.counts:
+        return None
+    return 1e3 * reading.counts["hub.issue_idle_s"] / batches

@@ -410,6 +410,51 @@ def test_hub_issue_and_finalize_use_different_streams(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
+def test_hub_serves_shots_and_frees_each_ended_stream(cuda):
+    """One decode hub kept open over three shots of four streams, fed in
+    chunks round-robin, each stream ended: every frame exact, and the
+    card's memory after the third shot no more than after the first plus
+    one shot's working set (an ended stream's reader is gone)."""
+    recs = [testdata.plasma_frames(7, 128, 160, bits=12, seed=50 + i)
+            for i in range(4)]
+    files = [fpv_tpu_torch.encode_file_fpvt(
+        r, shift=4, frames_per_batch=3, chunk_log2=8, device=cuda)
+        for r in recs]
+    got = {}
+    hub = fpv_tpu_torch.MultiStreamDecoder(
+        sink=lambda sid, fr, ts: got.setdefault(sid, []).append(fr.copy()),
+        devices=[cuda])
+
+    def shot(k):
+        ids = [f"cam{i}.{k}" for i in range(4)]
+        for sid in ids:
+            hub.add_stream(sid)
+        for off in range(0, max(map(len, files)), 4096):
+            for sid, data in zip(ids, files):
+                if off < len(data):
+                    hub.feed(sid, data[off : off + 4096])
+        for sid in ids:
+            hub.end_stream(sid)
+        for sid, r in zip(ids, recs):
+            np.testing.assert_array_equal(np.concatenate(got.pop(sid)),
+                                          r << 4)
+
+    torch.cuda.synchronize(cuda)
+    before = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    shot(0)
+    torch.cuda.synchronize(cuda)
+    working = torch.cuda.max_memory_allocated(cuda) - before
+    after_first = torch.cuda.memory_allocated(cuda)
+    shot(1)
+    shot(2)
+    torch.cuda.synchronize(cuda)
+    assert torch.cuda.memory_allocated(cuda) <= after_first + working
+    assert hub.stats()["batches"] == 3 * 4 * 3  # frame 0 + 2 batches each
+    hub.close()
+
+
+@pytest.mark.cuda
 def test_mutation_fuzz_on_card_then_clean_decode(cuda):
     """Single-byte mutations and truncations of a wide file (some forcing
     CG2D frames, so K3 runs on garbage) decode or raise ValueError on the

@@ -201,7 +201,7 @@ def test_decoder_sink_error_propagates():
 def test_decoder_issue_error_stops_finalizer():
     """An issue-stage failure (a corrupt lane count in the last batch)
     delivers the finalizer its shutdown sentinel even with finalizes
-    pending: close() raises promptly and neither worker stays alive."""
+    pending: close() raises promptly and no worker stays alive."""
     frames = testdata.plasma_frames(9, 32, 32, seed=9)
     data = bytearray(fpv_tpu_torch.encode_file_fpvt(
         frames, frames_per_batch=2, chunk_log2=8, device="cpu"))
@@ -219,10 +219,9 @@ def test_decoder_issue_error_stops_finalizer():
         hub.close()
     assert time.time() - t0 < 60  # not the 600 s join timeout
     assert "lane count" in str(info.value.__cause__)
-    hub._worker.join(timeout=10)
-    hub._finalizer.join(timeout=10)
-    assert not hub._worker.is_alive()
-    assert not hub._finalizer.is_alive()
+    for t in [*hub._workers, hub._finalizer]:
+        t.join(timeout=10)
+        assert not t.is_alive()
 
 
 def test_encoder_worker_error_surfaces():

@@ -1,10 +1,11 @@
-"""The port's FPVT parse: read-only views of ``bytes``, copies of anything
-mutable.
+"""The port's FPVT parse: read-only views of a read-only buffer, copies of
+a writable one.
 
-``format/fpvt.py`` parses an immutable ``bytes`` file into views of its
-bytes (payload, states, block counts, the order-0 table, frame flags and
-timestamps) and a ``bytearray`` or ``memoryview`` into copies, and counts
-the coded and RAW plane streams of each kind in ``PARSED_STREAMS``.  The
+``format/fpvt.py`` parses ``bytes`` or a read-only memoryview into views of
+its bytes (payload, states, block counts, the order-0 table, frame flags and
+timestamps) and a ``bytearray`` or writable ``memoryview`` into copies,
+and counts the coded and RAW plane streams of each kind in
+``PARSED_STREAMS``.  The
 files cover RAW, CONST, order-0 and ctx16 streams, narrow and 1024-lane,
 batches of odd and even frame counts (so unaligned arrays), odd RAW sizes
 and the golden fixtures; their decodes are held to the JAX package's
@@ -105,7 +106,8 @@ def expected():
 
 def _buffer(data: bytes, kind: str):
     return {"bytes": data, "bytearray": bytearray(data),
-            "memoryview": memoryview(bytearray(data))}[kind]
+            "memoryview": memoryview(bytearray(data)),
+            "readonly": memoryview(bytearray(data)).toreadonly()}[kind]
 
 
 def _parse_file(buf):
@@ -143,14 +145,16 @@ def _delta(before: dict) -> dict:
     return {k: tfpvt.PARSED_STREAMS[k] - before[k] for k in before}
 
 
-@pytest.mark.parametrize("kind", ["bytes", "bytearray", "memoryview"])
+@pytest.mark.parametrize("kind",
+                         ["bytes", "bytearray", "memoryview", "readonly"])
 @pytest.mark.parametrize("name", NAMES)
 def test_parse_views_bytes_and_copies_mutable_buffers(name, kind):
-    """From ``bytes`` every array the parse takes from the file shares its
-    memory and is read-only (a RAW plane of odd size excepted: its pad
-    makes it a copy); from a bytearray or memoryview each is a writable
-    copy.  Both parses hold the same values, and the counter counts each
-    coded or RAW stream once, under its kind."""
+    """From ``bytes`` or a read-only memoryview (of a bytearray: the
+    streaming reader's case) every array the parse takes from the file
+    shares its memory and is read-only (a RAW plane of odd size excepted:
+    its pad makes it a copy); from a bytearray or writable memoryview each
+    is a writable copy.  Both parses hold the same values, and the counter
+    counts each coded or RAW stream once, under its kind."""
     data = _data(name)
     ref_streams, ref_small = _parse_file(bytearray(data))
     buf = _buffer(data, kind)
@@ -159,13 +163,14 @@ def test_parse_views_bytes_and_copies_mutable_buffers(name, kind):
     streams, small = _parse_file(buf)
     n = _counted(streams)
     assert n > 0
-    assert _delta(before) == ({"view": n, "copy": 0} if kind == "bytes"
+    viewed = kind in ("bytes", "readonly")
+    assert _delta(before) == ({"view": n, "copy": 0} if viewed
                               else {"view": 0, "copy": n})
     codings = {st.coding for st in streams}
     for st, ref in zip(streams, ref_streams, strict=True):
         padded = st.coding == CODING_RAW and st.nframes * st.plane_size % 2
         for a in _stream_arrays(st):
-            view = kind == "bytes" and not padded
+            view = viewed and not padded
             assert np.shares_memory(a, base) == view
             assert a.flags.writeable != view
         if st.coding == CODING_CTX16:
@@ -176,7 +181,7 @@ def test_parse_views_bytes_and_copies_mutable_buffers(name, kind):
         assert (st.coding, st.lanes, st.chunk_len) == (
             ref.coding, ref.lanes, ref.chunk_len)
     for a, ref in zip(small, ref_small, strict=True):
-        assert np.shares_memory(a, base) == (kind == "bytes")
+        assert np.shares_memory(a, base) == viewed
         np.testing.assert_array_equal(a, ref)
     if name == "mixed-narrow":
         assert {CODING_ORDER0, CODING_CTX16, CODING_RAW} <= codings
@@ -203,10 +208,11 @@ def test_files_have_odd_and_even_batches_and_unaligned_payloads():
 
 @pytest.mark.parametrize("name", NAMES)
 def test_views_and_copies_decode_pixel_exact(name, expected):
-    """``decode_file_fpvt`` (a ``bytes`` reader: views) and the streaming
-    reader fed in uneven pieces (a bytearray: copies) both give the
-    golden inputs or JAX's decode, and count every stream under their
-    kind."""
+    """``decode_file_fpvt`` (a ``bytes`` reader: views), the streaming
+    reader fed in uneven pieces (views of its buffer, read-only while a
+    section is staged) and a reader's batches issued from a bytearray
+    (copies) all give the golden inputs or JAX's decode, and count every
+    stream under their kind."""
     data = _data(name)
     n = _counted(_parse_file(bytearray(data))[0])
     before = dict(tfpvt.PARSED_STREAMS)
@@ -224,8 +230,21 @@ def test_views_and_copies_decode_pixel_exact(name, expected):
         step = int(rng.integers(1, 4000))
         sr.decode(data[pos : pos + step])
         pos += step
-    assert _delta(before) == {"view": 0, "copy": n}
+    assert _delta(before) == {"view": n, "copy": 0}
     np.testing.assert_array_equal(np.concatenate(out), expected[name])
+
+    offsets = [off for off, _n in tfpvt.parse_footer(data)]
+    n_batch = _counted([st for off in offsets
+                        for pb in [tfpvt.parse_batch_section(data, off)]
+                        for st in (pb.high, pb.low, pb.preview)
+                        if st is not None])
+    reader = tcodec.FpvtReader(data, device="cpu")
+    mutable = bytearray(data)
+    before = dict(tfpvt.PARSED_STREAMS)
+    got = np.concatenate([reader._issue((mutable, off))()[0]
+                          for off in offsets])
+    assert _delta(before) == {"view": 0, "copy": n_batch}
+    np.testing.assert_array_equal(got, expected[name][-len(got):])
 
 
 def _payload_offset(data: bytes, st) -> int:
@@ -268,9 +287,9 @@ def test_streaming_reader_compacts_past_4_mib_in_uneven_pieces():
     """A stream of more than 4 MiB (a 16-bit file whose RAW noise batch
     section is repeated after its coded plasma one, under a footer of its
     own) fed in uneven pieces: the streaming reader drops consumed bytes
-    as it goes, raises no BufferError, counts every stream as a copy and
-    decodes pixel-exact, as JAX's reader and the port's ``bytes`` reader
-    decode the same file."""
+    as it goes, raises no BufferError, counts every stream as a view of
+    its buffer and decodes pixel-exact, as JAX's reader and the port's
+    ``bytes`` reader decode the same file."""
     frames = np.concatenate([
         testdata.plasma_frames(2, 256, 256, bits=16, seed=6),
         testdata.noise_frames(2, 256, 256)])
@@ -298,7 +317,7 @@ def test_streaming_reader_compacts_past_4_mib_in_uneven_pieces():
         sr.decode(data[pos : pos + step])
         pos += step
     assert sr._abs_base > 4 << 20  # compacted
-    assert _delta(before) == {"view": 0, "copy": n}
+    assert _delta(before) == {"view": n, "copy": 0}
     np.testing.assert_array_equal(np.concatenate(out), want)
 
 
